@@ -4,12 +4,17 @@
 
 Phases, each failing loudly (any failure exits non-zero before the last line):
   1. the card's name and power limit (nvidia-smi);
-  2. build of the field kernel (csrc/siren_field.cu, nvcc for sm_90a), timed;
+  2. build of the field kernels (csrc/*.cu, nvcc for sm_90a), timed; ptxas
+     registers and spills per kernel, and from `cuobjdump -sass` the count of
+     HGMMA (wgmma) and bulk-copy/TMA (UBLKCP/UTMALDG) instructions per kernel
+     entry and precision: fails if a `serving` entry has no HGMMA or spills;
   3. the kernel against its plain version on the card: both entries, both
      precisions, with and without SFT, at N=300 and at the full width of one
-     image (D=8, W=256, B=1, N=64*64*24), each output within its max and mean
-     limits (`siren_field.KERNEL_TOLERANCE`); then each entry timed at the main
-     path's shapes beside the plain version and the bound;
+     image (D=8, W=256, B=1, N=64*64*24), and in `serving` at B=2, N=64*64*24+37
+     (the persistent tile walk across items, a ragged last tile), each output
+     within its max and mean limits (`siren_field.KERNEL_TOLERANCE`); then each
+     entry timed in both precisions at the main path's shapes beside the plain
+     version and the bound;
   4. `E3DGE.image2image` at the flagship configuration (bf16, 64^2 x 24 field,
      IR-SE-50 at 256^2, 4-stack hourglass, decoder to 1024^2) on seeded
      weights: launch counts from one call (one launch of each kernel entry),
@@ -30,6 +35,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -48,6 +54,16 @@ HBM_BYTES_PER_S = 3.35e12
 # (tests/test_golden_oracle.py:40-41); the decoder's 5 upsampling levels carry
 # that at gain ~1 into [-1, 1] images, so 1e-2 on gen_imgs.
 TOL_CARD_VS_CPU = 1e-2
+# the FiLM epilogue's f32-pipe instructions per activation (bias add, FiLM
+# fma, fast_sin's range reduction and 6-term polynomial, bf16 rounding)
+EPILOGUE_INSTR = 14
+# kernel entries by their mangled names in the built library
+KERNEL_ENTRIES = {
+    "siren_field_tc_kernelILb0E": ("siren_field_full", "serving"),
+    "siren_field_tc_kernelILb1E": ("siren_field_tex", "serving"),
+    "siren_field_kernelILb0E": ("siren_field_full", "highest"),
+    "siren_field_kernelILb1E": ("siren_field_tex", "highest"),
+}
 # bf16 image2image against f32 on the same weights, input and noise: mean
 # |bf16 - f32| / max |f32| as tests/test_precision.py:94 holds the JAX bf16
 # pipeline; an image whose std falls below the floor is taken as degenerate.
@@ -85,7 +101,58 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def field_inputs(n: int, precision: str, sft: bool, device, depth: int = 8, width: int = 256):
+def kernel_entry(mangled: str) -> tuple[str, str] | None:
+    """(entry, precision) of a kernel function of the built library."""
+    return next((v for k, v in KERNEL_ENTRIES.items() if k in mangled), None)
+
+
+def check_build(path, build_log: str) -> dict:
+    """Phase 2: per kernel entry and precision, ptxas's registers, spill bytes
+    and injected warpgroup fences (C7519), and the SASS counts of HGMMA
+    (wgmma) and bulk-copy/TMA (UBLKCP/UTMALDG) instructions. Fails if a
+    `serving` entry has no HGMMA or spills. An empty log (library already
+    built) leaves the ptxas columns None."""
+    from e3dge_torch.ops import siren_field as sf
+
+    func, ptxas = None, defaultdict(dict)
+    for line in build_log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+        if m:
+            func = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and func:
+            ptxas[func]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and func:
+            ptxas[func]["registers"] = int(m.group(1))
+        m = re.search(r"C7519.* in function '(\w+)'", line)
+        if m:
+            ptxas[m.group(1)]["injected_fences"] = ptxas[m.group(1)].get("injected_fences", 0) + 1
+        elif "warning" in line:
+            log(f"  ptxas: {line.strip()}")
+    cuobjdump = os.path.join(os.path.dirname(sf.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True, check=True).stdout
+    counts = {}
+    for block in sass.split("Function : ")[1:]:
+        name = block.split()[0]
+        entry = kernel_entry(name)
+        if entry is None:
+            continue
+        info = next((v for k, v in ptxas.items() if k == name), {})
+        counts[entry] = {"registers": info.get("registers"), "spill_bytes": info.get("spill_bytes"),
+                         "injected_fences": info.get("injected_fences", 0) if info else None,
+                         **{op: len(re.findall(rf"\b{op}\b", block)) for op in ("HGMMA", "UBLKCP", "UTMALDG")}}
+        log(f"  {entry[0]:16s} {entry[1]:7s} {counts[entry]}")
+    for entry in (("siren_field_full", "serving"), ("siren_field_tex", "serving")):
+        c = counts.get(entry)
+        if not c or c["HGMMA"] == 0:
+            raise AssertionError(f"{entry} runs no wgmma (HGMMA) in the built library: {c}")
+        if c["spill_bytes"]:
+            raise AssertionError(f"{entry} spills registers: {c['spill_bytes']} bytes")
+    return counts
+
+
+def field_inputs(n: int, precision: str, sft: bool, device, depth: int = 8, width: int = 256, batch: int = 1):
     """Seeded field operands: SIREN-initialised weights, warped points in the
     [-1, 1] box, unit view dirs, W+ styles, optional SFT modulations."""
     from e3dge_torch.models.siren import SirenGenerator
@@ -94,14 +161,14 @@ def field_inputs(n: int, precision: str, sft: bool, device, depth: int = 8, widt
     torch.manual_seed(SEED)
     net = SirenGenerator(depth, width, width).to(device)
     g = torch.Generator().manual_seed(SEED + n)
-    pts = (torch.rand(1, n, 3, generator=g) * 2 - 1).to(device)
-    dirs = torch.nn.functional.normalize(torch.randn(1, n, 3, generator=g), dim=-1).to(device)
-    styles = (0.3 * torch.randn(1, depth + 1, width, generator=g)).to(device)
+    pts = (torch.rand(batch, n, 3, generator=g) * 2 - 1).to(device)
+    dirs = torch.nn.functional.normalize(torch.randn(batch, n, 3, generator=g), dim=-1).to(device)
+    styles = (0.3 * torch.randn(batch, depth + 1, width, generator=g)).to(device)
     alpha = lbeta = None
     if sft:
         dt = io_dtype(precision)
-        alpha = (0.1 * torch.randn(1, n, width, generator=g)).to(device, dt)
-        lbeta = (0.1 * torch.randn(1, n, width, generator=g)).to(device, dt)
+        alpha = (0.1 * torch.randn(batch, n, width, generator=g)).to(device, dt)
+        lbeta = (0.1 * torch.randn(batch, n, width, generator=g)).to(device, dt)
     gamma, beta = net.film_vectors(styles.to(torch.bfloat16) if precision == "serving" else styles)
     return dict(pts=pts, dirs=dirs, pack=net.pack(precision), gamma=gamma, beta=beta, alpha=alpha, lbeta=lbeta)
 
@@ -114,92 +181,94 @@ def check_kernels(device) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     main_err = {}
-    for n in (300, N_FULL):
-        for precision in ("highest", "serving"):
-            for sft in (False, True):
-                x = field_inputs(n, precision, sft, device)
-                args = (x["pts"], x["dirs"], x["pack"], x["gamma"], x["beta"], x["alpha"], x["lbeta"])
-                feat, rgb_sdf, raw_h = sf.siren_field_full(*args, precision=precision, return_raw_h=True)
-                pfeat, prgb_sdf, praw_h = sf.siren_field_reference(*args, precision=precision, return_raw_h=True)
-                tex_args = (praw_h, x["dirs"], x["pack"], x["gamma"][:, -1].contiguous(),
-                            x["beta"][:, -1].contiguous(), x["alpha"], x["lbeta"])
-                tfeat, trgb = sf.siren_field_tex(*tex_args, precision=precision)
-                qfeat, qrgb = sf.siren_field_tex_reference(*tex_args, precision=precision)
-                torch.cuda.synchronize()
-                rows = {
-                    "full.feat": (feat, pfeat, "hidden"),
-                    "full.rgb_sdf": (rgb_sdf, prgb_sdf, "head"),
-                    "full.raw_h": (raw_h, praw_h, "hidden"),
-                    "tex.feat": (tfeat, qfeat, "hidden"),
-                    "tex.rgb": (trgb, qrgb, "head"),
-                }
-                errs = {}
-                for name, (got, want, kind) in rows.items():
-                    mx, mean, ok = sf.kernel_errors(got, want, kind, precision)
-                    errs[name] = mx
-                    tol_max, tol_mean = sf.KERNEL_TOLERANCE[precision][kind]
-                    log(f"  N={n:6d} {precision:7s} sft={int(sft)} {name:12s} max {mx:.3e} mean {mean:.3e}"
-                        f"  [max<={tol_max:g} mean<={tol_mean:g}] {'ok' if ok else 'FAIL'}")
-                    if not ok:
-                        raise AssertionError(f"field kernel disagrees with its plain version: {name} N={n} {precision}")
-                if n == N_FULL and precision == "serving":
-                    # the main path: pass 1 has no SFT, pass 2 (texture) has it
-                    if not sft:
-                        main_err["siren_field_full"] = max(errs["full.feat"], errs["full.rgb_sdf"], errs["full.raw_h"])
-                    else:
-                        main_err["siren_field_tex"] = max(errs["tex.feat"], errs["tex.rgb"])
+    cases = [(1, n, precision) for n in (300, N_FULL) for precision in ("highest", "serving")]
+    cases.append((2, N_FULL + 37, "serving"))
+    for batch, n, precision in cases:
+        for sft in (False, True):
+            x = field_inputs(n, precision, sft, device, batch=batch)
+            args = (x["pts"], x["dirs"], x["pack"], x["gamma"], x["beta"], x["alpha"], x["lbeta"])
+            feat, rgb_sdf, raw_h = sf.siren_field_full(*args, precision=precision, return_raw_h=True)
+            pfeat, prgb_sdf, praw_h = sf.siren_field_reference(*args, precision=precision, return_raw_h=True)
+            tex_args = (praw_h, x["dirs"], x["pack"], x["gamma"][:, -1].contiguous(),
+                        x["beta"][:, -1].contiguous(), x["alpha"], x["lbeta"])
+            tfeat, trgb = sf.siren_field_tex(*tex_args, precision=precision)
+            qfeat, qrgb = sf.siren_field_tex_reference(*tex_args, precision=precision)
+            torch.cuda.synchronize()
+            rows = {
+                "full.feat": (feat, pfeat, "hidden"),
+                "full.rgb_sdf": (rgb_sdf, prgb_sdf, "head"),
+                "full.raw_h": (raw_h, praw_h, "hidden"),
+                "tex.feat": (tfeat, qfeat, "hidden"),
+                "tex.rgb": (trgb, qrgb, "head"),
+            }
+            errs = {}
+            for name, (got, want, kind) in rows.items():
+                mx, mean, ok = sf.kernel_errors(got, want, kind, precision)
+                errs[name] = mx
+                tol_max, tol_mean = sf.KERNEL_TOLERANCE[precision][kind]
+                log(f"  B={batch} N={n:6d} {precision:7s} sft={int(sft)} {name:12s} max {mx:.3e} mean {mean:.3e}"
+                    f"  [max<={tol_max:g} mean<={tol_mean:g}] {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"field kernel disagrees with its plain version: {name} N={n} {precision}")
+            if (batch, n, precision) == (1, N_FULL, "serving"):
+                # the main path: pass 1 has no SFT, pass 2 (texture) has it
+                if not sft:
+                    main_err["siren_field_full"] = max(errs["full.feat"], errs["full.rgb_sdf"], errs["full.raw_h"])
+                else:
+                    main_err["siren_field_tex"] = max(errs["tex.feat"], errs["tex.rgb"])
     return main_err
 
 
-def field_bounds(n: int, depth: int = 8, width: int = 256) -> dict:
-    """Least time for each entry at the main path's serving shapes: bytes each
-    input read once / each output written once over HBM rate, matmul flops over
-    the bf16 tensor-core peak, the FiLM sines (fast_sin ~ 16 f32 flops) over
-    the f32 peak; the largest of the three."""
-    bf, f4 = 2, 4
-    weights = (3 * width + (depth - 1) * width * width + width * width + 3 * width + width + 3 * width) * bf
+def field_bounds(n: int, precision: str, depth: int = 8, width: int = 256) -> dict:
+    """Least time for each entry at the main path's shapes: the larger of the
+    bytes (each input read once, each output written once) over the HBM rate
+    and the operations over their pipe's peak. `serving`: bf16 weights and io,
+    the matmuls on the bf16 tensor cores beside the FiLM sines (fast_sin ~ 16
+    f32 flops) on the f32 pipe; `highest`: f32 weights and io, both on the
+    f32 pipe. Also the epilogue's f32-pipe floor: EPILOGUE_INSTR instructions
+    per activation at the f32 instruction rate (half the flop rate)."""
+    io, f4 = (2 if precision == "serving" else 4), 4
+    weights = (3 * width + (depth - 1) * width * width + width * width + 3 * width + width + 3 * width) * io
     film = 2 * (depth + 1) * width * f4
-    full_bytes = n * 3 * f4 * 2 + weights + film + n * width * bf * 2 + n * 4 * f4  # in; feat, raw_h, rgb_sdf
+    full_bytes = n * 3 * f4 * 2 + weights + film + n * width * io * 2 + n * 4 * f4  # in; feat, raw_h, rgb_sdf
     full_mm = 2 * n * width * (3 + (depth - 1) * width + width + 3 + 1 + 3)
-    full_sin = 16 * n * width * (depth + 1)
-    tex_bytes = n * width * bf * 3 + n * 3 * f4 + (width * width + 6 * width) * bf + 2 * width * f4 \
-        + n * width * bf + n * 3 * f4  # raw_h, alpha, lbeta, dirs in; feat, rgb out
+    tex_bytes = n * width * io * 3 + n * 3 * f4 + (width * width + 6 * width) * io + 2 * width * f4 \
+        + n * width * io + n * 3 * f4  # raw_h, alpha, lbeta, dirs in; feat, rgb out
     tex_mm = 2 * n * width * (width + 3 + 3)
-    tex_sin = 16 * n * width
     out = {}
-    for name, nbytes, mm, sin in (("siren_field_full", full_bytes, full_mm, full_sin),
-                                  ("siren_field_tex", tex_bytes, tex_mm, tex_sin)):
-        terms = {"bytes": nbytes / HBM_BYTES_PER_S, "operations": max(mm / PEAK_BF16_TC, sin / PEAK_F32)}
+    for name, nbytes, mm, acts in (("siren_field_full", full_bytes, full_mm, n * width * (depth + 1)),
+                                   ("siren_field_tex", tex_bytes, tex_mm, n * width)):
+        sin = 16 * acts
+        ops = max(mm / PEAK_BF16_TC, sin / PEAK_F32) if precision == "serving" else (mm + sin) / PEAK_F32
+        terms = {"bytes": nbytes / HBM_BYTES_PER_S, "operations": ops}
         by = max(terms, key=terms.get)
-        out[name] = {"bound_ms": terms[by] * 1e3, "bound_by": by}
+        out[name] = {"bound_ms": terms[by] * 1e3, "bound_by": by,
+                     "epilogue_floor_ms": EPILOGUE_INSTR * acts / (PEAK_F32 / 2) * 1e3}
     return out
 
 
 def time_kernels(device) -> dict:
-    """Each entry and its plain version at the main path's shapes (serving,
-    B=1, N=64*64*24; pass 1 without SFT writing raw_h, pass 2 with SFT)."""
+    """Each entry and its plain version at the main path's shapes (B=1,
+    N=64*64*24; pass 1 without SFT writing raw_h, pass 2 with SFT), in both
+    precisions: {(entry, precision): (kernel ms, plain ms)}."""
     from e3dge_torch.ops import siren_field as sf
 
-    x = field_inputs(N_FULL, "serving", False, device)
-    full_args = (x["pts"], x["dirs"], x["pack"], x["gamma"], x["beta"])
-    y = field_inputs(N_FULL, "serving", True, device)
-    raw_h = sf.siren_field_reference(*full_args, precision="serving", return_raw_h=True)[2]
-    tex_args = (raw_h, y["dirs"], y["pack"], y["gamma"][:, -1].contiguous(), y["beta"][:, -1].contiguous(),
-                y["alpha"], y["lbeta"])
-    t = {
-        "siren_field_full": (
-            cuda_ms(lambda: sf.siren_field_full(*full_args, precision="serving", return_raw_h=True)),
-            cuda_ms(lambda: sf.siren_field_reference(*full_args, precision="serving", return_raw_h=True), iters=5),
-        ),
-        "siren_field_tex": (
-            cuda_ms(lambda: sf.siren_field_tex(*tex_args, precision="serving")),
-            cuda_ms(lambda: sf.siren_field_tex_reference(*tex_args, precision="serving"), iters=5),
-        ),
-    }
-    hx = field_inputs(N_FULL, "highest", False, device)
-    t_high = cuda_ms(lambda: sf.siren_field_full(hx["pts"], hx["dirs"], hx["pack"], hx["gamma"], hx["beta"],
-                                                 precision="highest", return_raw_h=True))
-    log(f"  siren_field_full highest (f32) at N={N_FULL}: {t_high:.4f} ms")
+    t = {}
+    for precision in ("serving", "highest"):
+        x = field_inputs(N_FULL, precision, False, device)
+        full_args = (x["pts"], x["dirs"], x["pack"], x["gamma"], x["beta"])
+        y = field_inputs(N_FULL, precision, True, device)
+        raw_h = sf.siren_field_reference(*full_args, precision=precision, return_raw_h=True)[2]
+        tex_args = (raw_h, y["dirs"], y["pack"], y["gamma"][:, -1].contiguous(), y["beta"][:, -1].contiguous(),
+                    y["alpha"], y["lbeta"])
+        t[("siren_field_full", precision)] = (
+            cuda_ms(lambda: sf.siren_field_full(*full_args, precision=precision, return_raw_h=True)),
+            cuda_ms(lambda: sf.siren_field_reference(*full_args, precision=precision, return_raw_h=True), iters=5),
+        )
+        t[("siren_field_tex", precision)] = (
+            cuda_ms(lambda: sf.siren_field_tex(*tex_args, precision=precision)),
+            cuda_ms(lambda: sf.siren_field_tex_reference(*tex_args, precision=precision), iters=5),
+        )
     return t
 
 
@@ -398,19 +467,20 @@ def main() -> int:
 
     t0 = time.perf_counter()
     path, build_log = sf.build_library()
-    log(f"[2] field kernel built in {time.perf_counter() - t0:.1f} s: {path.name}")
-    for line in build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    log(f"[2] field kernels built in {time.perf_counter() - t0:.1f} s: {path.name}")
+    check_build(path, build_log)
 
     log("[3] field kernel vs its plain version on the card")
     with torch.no_grad():
         main_err = check_kernels(device)
         times = time_kernels(device)
-    bounds = field_bounds(N_FULL)
-    for name, (ms, plain_ms) in times.items():
-        log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bounds[name]['bound_ms']:.4f} ms "
-            f"({bounds[name]['bound_by']})")
+    bounds = {p: field_bounds(N_FULL, p) for p in ("serving", "highest")}
+    for (name, precision), (ms, plain_ms) in times.items():
+        bd = bounds[precision][name]
+        log(f"  {name} {precision}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms "
+            f"({bd['bound_by']}), epilogue f32-pipe floor {bd['epilogue_floor_ms']:.4f} ms")
+    bounds = bounds["serving"]
+    times = {name: times[(name, "serving")] for name in ("siren_field_full", "siren_field_tex")}
 
     log("[4] image2image, flagship config on seeded weights")
     counts, inv_ms, bf16_img = run_flagship(device)
@@ -423,7 +493,7 @@ def main() -> int:
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": "e3dge_torch/csrc/siren_field.cu",
+            "source": "e3dge_torch/csrc/siren_field_sm90.cu",
             "replaces": "e3dge_tpu/ops/pallas/siren_kernel.py:48",
             "launches": counts[name],
             "max_abs_err": main_err[name],

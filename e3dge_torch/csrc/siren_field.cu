@@ -1,7 +1,9 @@
-// FiLM-SIREN field kernel for Hopper (sm_90a) — the port of the one TPU kernel
-// of the JAX package, e3dge_tpu/ops/pallas/siren_kernel.py::_siren_kernel
-// (launched by siren_query_fused). Wrapper, plain version and launch counts:
-// e3dge_torch/ops/siren_field.py.
+// FiLM-SIREN field kernel, `highest` (f32) precision, for Hopper (sm_90a) — a
+// port of the one TPU kernel of the JAX package,
+// e3dge_tpu/ops/pallas/siren_kernel.py::_siren_kernel (launched by
+// siren_query_fused). The `serving` (bf16) precision, which the serving path
+// runs, is the tensor-core kernel of siren_field_sm90.cu. Wrapper, plain
+// version and launch counts: e3dge_torch/ops/siren_field.py.
 //
 // What it computes, per point of the G0 render (N = 64*64*24 = 98,304 per image):
 //   h_0   = sin(g_0 * (xyz W_0^T + b_0) + be_0)
@@ -17,35 +19,21 @@
 //                      raw_h [B, N, W] (the same-view re-render cache);
 //   siren_field_tex  : the kernel's tail (SFT, view layer, rgb) on a cached
 //                      raw_h — the texture-only second pass of image2image.
-// Precision (template flag SERVING):
-//   highest : f32 operands, f32 FMA, sinf; io tensors f32.
-//   serving : matmul operands rounded to bf16 (__float2bfloat16, round to
-//             nearest even), f32 accumulation, the fast_sin polynomial with
-//             rintf range reduction (constants of ops/fast_math.py); io tensors
-//             (raw_h, alpha, lbeta, feat) and weights bf16; each activation is
-//             rounded to bf16 as it is produced, so the texture pass on a cached
-//             bf16 raw_h equals the full pass.
+// f32 operands, f32 FMA, sinf; io tensors f32. TF32 tensor cores would change
+// its numbers, and it is the f32 check mode, off the serving path.
 //
-// Bound on an H100 SXM (989 TFLOP/s bf16 dense tensor cores, ~67 TFLOP/s f32
-// outside them, 3.35 TB/s): the full pass does 2*N*W*(3 + (D-1)*W + W + 3 + 4)
-// ~ 104 GFLOP per image and reads/writes ~O(N*W) bytes, so it is bound by
-// operations — ~0.11 ms on tensor cores, ~1.6 ms in f32 FMA. The texture pass
-// does ~13.7 GFLOP but moves raw_h, alpha, lbeta and feat (4 x N*W elements),
-// so it is bound by bytes.
+// Bound on an H100 SXM (~67 TFLOP/s f32 outside the tensor cores): the full
+// pass does 2*N*W*(3 + (D-1)*W + W + 3 + 4) ~ 104 GFLOP per image, ~1.6 ms in
+// f32 FMA: bound by operations.
 //
-// What this first design does about it: one block owns a tile of T = 64
-// points and keeps its activations on chip for all D+1 layers (shared memory,
-// [W][T] f32 = 68 KB with padding, above the 48 KB default, hence the
-// dynamic-shared-memory attribute): device memory sees one read of the inputs
-// and one write of the outputs, as in the TPU kernel. The TPU kernel also keeps
-// every weight resident in VMEM; 227 KB of shared memory cannot hold the ~2 MB
-// f32 (~1 MB bf16) of weights, so here weights stream from L2 (each block reads
-// each layer once, coalesced). Each thread accumulates a 16-point x 4-channel
-// register tile with scalar FMA; the serving mode rounds operands like bf16
-// tensor-core inputs but still runs on the f32 FMA pipe. wgmma/TMA with a
-// bf16 resident-layer ring is the next step and is not done here.
+// Design: one block owns a tile of T = 64 points and keeps its activations on
+// chip for all D+1 layers (shared memory, [W][T] f32 = 68 KB with padding,
+// above the 48 KB default, hence the dynamic-shared-memory attribute): device
+// memory sees one read of the inputs and one write of the outputs, as in the
+// TPU kernel. Weights stream from L2 (each block reads each layer once,
+// coalesced). Each thread accumulates a 16-point x 4-channel register tile
+// with scalar FMA.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -65,61 +53,29 @@ static_assert(THREADS == (W / CT) * (T / PT), "thread tile must cover the block 
 struct FieldArgs {
   const float* pts;            // [B, N, 3]  (full only)
   const float* dirs;           // [B, N, 3]
-  const void* w0t;             // [3, W]      first layer, transposed
-  const void* wst;             // [D-1, W, W] layers 1..D-1, transposed (in, out)
+  const float* w0t;            // [3, W]      first layer, transposed
+  const float* wst;            // [D-1, W, W] layers 1..D-1, transposed (in, out)
   const float* bst;            // [D, W]
-  const void* wvht;            // [W, W]      view layer, h part, transposed
-  const void* wvdt;            // [3, W]      view layer, dirs part, transposed
+  const float* wvht;           // [W, W]      view layer, h part, transposed
+  const float* wvdt;           // [3, W]      view layer, dirs part, transposed
   const float* bv;             // [W]
-  const void* wsig;            // [W]
-  const void* wrgb;            // [3, W]
+  const float* wsig;           // [W]
+  const float* wrgb;           // [3, W]
   const float* bheads;         // [4]  rgb bias (3), sigma bias
   const float* gamma;          // [B, film_rows, W]
   const float* beta;           // [B, film_rows, W]
-  const void* alpha;           // [B, N, W] or null (no SFT)
-  const void* lbeta;           // [B, N, W] or null
-  const void* raw_h_in;        // [B, N, W]  (tex only)
-  void* feat;                  // [B, N, W]
+  const float* alpha;          // [B, N, W] or null (no SFT)
+  const float* lbeta;          // [B, N, W] or null
+  const float* raw_h_in;       // [B, N, W]  (tex only)
+  float* feat;                 // [B, N, W]
   float* out;                  // [B, N, out_cols]  rgb (+ sdf)
-  void* raw_h_out;             // [B, N, W] or null (full only)
+  float* raw_h_out;            // [B, N, W] or null (full only)
   int N, D, film_rows, out_cols;
 };
 
-template <bool S> struct Io;
-template <> struct Io<false> { using T = float; };
-template <> struct Io<true> { using T = __nv_bfloat16; };
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
-template <bool S> __device__ __forceinline__ float opnd(float x) {
-  return S ? __bfloat162float(__float2bfloat16(x)) : x;
-}
-
-// ops/fast_math.py::fast_sin, same constants; rintf rounds half to even as
-// jnp.round / torch.round do.
-__device__ __forceinline__ float fast_sin(float x) {
-  x = x - rintf(x * 0.15915494309189535f) * 6.283185307179586f;
-  const float x2 = x * x;
-  float p = -2.0362212395e-08f;
-  p = p * x2 + 2.6997138342e-06f;
-  p = p * x2 + -1.9808632629e-04f;
-  p = p * x2 + 8.3324029612e-03f;
-  p = p * x2 + -1.6666552631e-01f;
-  p = p * x2 + 9.9999959991e-01f;
-  return x * p;
-}
-
-template <bool S> __device__ __forceinline__ float act(float x) {
-  return S ? fast_sin(x) : sinf(x);
-}
-
 // acc[i][m] <- sum_k hs[k][16g+i] * wt[k][c + 64m]  (wt is [W, W] input-major)
-template <bool S>
 __device__ __forceinline__ void tile_matmul(const float* __restrict__ hs,
-                                            const typename Io<S>::T* __restrict__ wt,
+                                            const float* __restrict__ wt,
                                             float (&acc)[PT][CT], int c, int g) {
 #pragma unroll
   for (int i = 0; i < PT; ++i)
@@ -129,7 +85,7 @@ __device__ __forceinline__ void tile_matmul(const float* __restrict__ hs,
   for (int k = 0; k < W; ++k) {
     float w[CT];
 #pragma unroll
-    for (int m = 0; m < CT; ++m) w[m] = to_f(wt[(size_t)k * W + c + 64 * m]);
+    for (int m = 0; m < CT; ++m) w[m] = wt[(size_t)k * W + c + 64 * m];
     const float4* hrow = reinterpret_cast<const float4*>(hs + k * LDH + g * PT);
     float hv[PT];
 #pragma unroll
@@ -156,8 +112,7 @@ __device__ __forceinline__ void store_tile(float* hs, const float (&acc)[PT][CT]
   }
 }
 
-// acc <- act(gamma * (acc + bias) + beta), rounded to the io precision
-template <bool S>
+// acc <- sin(gamma * (acc + bias) + beta)
 __device__ __forceinline__ void film_epilogue(float (&acc)[PT][CT], const float* bias,
                                               const float* gam, const float* bet, int c) {
 #pragma unroll
@@ -165,13 +120,12 @@ __device__ __forceinline__ void film_epilogue(float (&acc)[PT][CT], const float*
     const int j = c + 64 * m;
     const float bj = bias[j], gj = gam[j], ej = bet[j];
 #pragma unroll
-    for (int i = 0; i < PT; ++i) acc[i][m] = opnd<S>(act<S>(gj * (acc[i][m] + bj) + ej));
+    for (int i = 0; i < PT; ++i) acc[i][m] = sinf(gj * (acc[i][m] + bj) + ej);
   }
 }
 
-template <bool S, bool TEX>
+template <bool TEX>
 __global__ void __launch_bounds__(THREADS, 2) siren_field_kernel(FieldArgs a) {
-  using IoT = typename Io<S>::T;
   extern __shared__ __align__(16) float smem[];
   float* hs = smem;              // [W][LDH] activation tile, k-major
   float* ps = hs + W * LDH;      // [T][4] points
@@ -196,71 +150,71 @@ __global__ void __launch_bounds__(THREADS, 2) siren_field_kernel(FieldArgs a) {
       if (!TEX) pv = a.pts[(row0 + p) * 3 + d];
       dv = a.dirs[(row0 + p) * 3 + d];
     }
-    ps[p * 4 + d] = opnd<S>(pv);
-    ds[p * 4 + d] = opnd<S>(dv);
+    ps[p * 4 + d] = pv;
+    ds[p * 4 + d] = dv;
   }
   __syncthreads();
 
   float acc[PT][CT];
   if (!TEX) {
     // layer 0 reads xyz (K = 3)
-    const IoT* w0t = static_cast<const IoT*>(a.w0t);
+    const float* w0t = a.w0t;
 #pragma unroll
     for (int m = 0; m < CT; ++m) {
       const int j = c + 64 * m;
-      const float w0 = to_f(w0t[j]), w1 = to_f(w0t[W + j]), w2 = to_f(w0t[2 * W + j]);
+      const float w0 = w0t[j], w1 = w0t[W + j], w2 = w0t[2 * W + j];
 #pragma unroll
       for (int i = 0; i < PT; ++i) {
         const float* p = ps + (g * PT + i) * 4;
         acc[i][m] = fmaf(p[2], w2, fmaf(p[1], w1, p[0] * w0));
       }
     }
-    film_epilogue<S>(acc, a.bst, gam, bet, c);
-    const IoT* wst = static_cast<const IoT*>(a.wst);
+    film_epilogue(acc, a.bst, gam, bet, c);
+    const float* wst = a.wst;
     for (int l = 1; l < a.D; ++l) {
       store_tile(hs, acc, c, g);
       __syncthreads();
-      tile_matmul<S>(hs, wst + (size_t)(l - 1) * W * W, acc, c, g);
+      tile_matmul(hs, wst + (size_t)(l - 1) * W * W, acc, c, g);
       __syncthreads();
-      film_epilogue<S>(acc, a.bst + l * W, gam + l * W, bet + l * W, c);
+      film_epilogue(acc, a.bst + l * W, gam + l * W, bet + l * W, c);
     }
     if (a.raw_h_out) {
-      IoT* rh = static_cast<IoT*>(a.raw_h_out);
+      float* rh = a.raw_h_out;
 #pragma unroll
       for (int i = 0; i < PT; ++i) {
         const int p = g * PT + i;
         if (p < nvalid)
 #pragma unroll
-          for (int m = 0; m < CT; ++m) store(rh + (row0 + p) * W + c + 64 * m, acc[i][m]);
+          for (int m = 0; m < CT; ++m) rh[(row0 + p) * W + c + 64 * m] = acc[i][m];
       }
     }
     // sdf from the unmodulated backbone: 4 lanes per point, shuffle-reduced
     store_tile(hs, acc, c, g);
     __syncthreads();
     {
-      const IoT* wsig = static_cast<const IoT*>(a.wsig);
+      const float* wsig = a.wsig;
       const int p = tid >> 2, q = tid & 3;
       float s = 0.f;
-      for (int k = q * (W / 4); k < (q + 1) * (W / 4); ++k) s = fmaf(hs[k * LDH + p], to_f(wsig[k]), s);
+      for (int k = q * (W / 4); k < (q + 1) * (W / 4); ++k) s = fmaf(hs[k * LDH + p], wsig[k], s);
       s += __shfl_xor_sync(0xffffffffu, s, 1);
       s += __shfl_xor_sync(0xffffffffu, s, 2);
       if (q == 0) sdf_s[p] = s + a.bheads[3];
     }
     __syncthreads();
   } else {
-    const IoT* rh = static_cast<const IoT*>(a.raw_h_in);
+    const float* rh = a.raw_h_in;
 #pragma unroll
     for (int i = 0; i < PT; ++i) {
       const int p = g * PT + i;
 #pragma unroll
       for (int m = 0; m < CT; ++m)
-        acc[i][m] = p < nvalid ? to_f(rh[(row0 + p) * W + c + 64 * m]) : 0.f;
+        acc[i][m] = p < nvalid ? rh[(row0 + p) * W + c + 64 * m] : 0.f;
     }
   }
 
   if (a.alpha) {  // local SFT of the texture branch
-    const IoT* al = static_cast<const IoT*>(a.alpha);
-    const IoT* lb = static_cast<const IoT*>(a.lbeta);
+    const float* al = a.alpha;
+    const float* lb = a.lbeta;
 #pragma unroll
     for (int i = 0; i < PT; ++i) {
       const int p = g * PT + i;
@@ -268,9 +222,8 @@ __global__ void __launch_bounds__(THREADS, 2) siren_field_kernel(FieldArgs a) {
 #pragma unroll
         for (int m = 0; m < CT; ++m) {
           const size_t o = (row0 + p) * W + c + 64 * m;
-          // multiply, then add, each rounded (no FMA contraction), and the
-          // result rounded as a matmul operand of the view layer
-          acc[i][m] = opnd<S>(__fadd_rn(__fmul_rn(to_f(al[o]) + 1.f, acc[i][m]), to_f(lb[o])));
+          // multiply, then add, each rounded (no FMA contraction)
+          acc[i][m] = __fadd_rn(__fmul_rn(al[o] + 1.f, acc[i][m]), lb[o]);
         }
     }
   }
@@ -278,13 +231,13 @@ __global__ void __launch_bounds__(THREADS, 2) siren_field_kernel(FieldArgs a) {
   // view layer: [h', dirs] (K = W + 3)
   store_tile(hs, acc, c, g);
   __syncthreads();
-  tile_matmul<S>(hs, static_cast<const IoT*>(a.wvht), acc, c, g);
+  tile_matmul(hs, a.wvht, acc, c, g);
   {
-    const IoT* wvdt = static_cast<const IoT*>(a.wvdt);
+    const float* wvdt = a.wvdt;
 #pragma unroll
     for (int m = 0; m < CT; ++m) {
       const int j = c + 64 * m;
-      const float w0 = to_f(wvdt[j]), w1 = to_f(wvdt[W + j]), w2 = to_f(wvdt[2 * W + j]);
+      const float w0 = wvdt[j], w1 = wvdt[W + j], w2 = wvdt[2 * W + j];
 #pragma unroll
       for (int i = 0; i < PT; ++i) {
         const float* d = ds + (g * PT + i) * 4;
@@ -292,15 +245,15 @@ __global__ void __launch_bounds__(THREADS, 2) siren_field_kernel(FieldArgs a) {
       }
     }
   }
-  film_epilogue<S>(acc, a.bv, gam + film_v * W, bet + film_v * W, c);
+  film_epilogue(acc, a.bv, gam + film_v * W, bet + film_v * W, c);
   {
-    IoT* ft = static_cast<IoT*>(a.feat);
+    float* ft = a.feat;
 #pragma unroll
     for (int i = 0; i < PT; ++i) {
       const int p = g * PT + i;
       if (p < nvalid)
 #pragma unroll
-        for (int m = 0; m < CT; ++m) store(ft + (row0 + p) * W + c + 64 * m, acc[i][m]);
+        for (int m = 0; m < CT; ++m) ft[(row0 + p) * W + c + 64 * m] = acc[i][m];
     }
   }
   __syncthreads();
@@ -309,14 +262,14 @@ __global__ void __launch_bounds__(THREADS, 2) siren_field_kernel(FieldArgs a) {
 
   // rgb head on feat: 4 lanes per point, shuffle-reduced
   {
-    const IoT* wrgb = static_cast<const IoT*>(a.wrgb);
+    const float* wrgb = a.wrgb;
     const int p = tid >> 2, q = tid & 3;
     float r0 = 0.f, r1 = 0.f, r2 = 0.f;
     for (int k = q * (W / 4); k < (q + 1) * (W / 4); ++k) {
       const float f = hs[k * LDH + p];
-      r0 = fmaf(f, to_f(wrgb[k]), r0);
-      r1 = fmaf(f, to_f(wrgb[W + k]), r1);
-      r2 = fmaf(f, to_f(wrgb[2 * W + k]), r2);
+      r0 = fmaf(f, wrgb[k], r0);
+      r1 = fmaf(f, wrgb[W + k], r1);
+      r2 = fmaf(f, wrgb[2 * W + k], r2);
     }
 #pragma unroll
     for (int o = 1; o < 4; o <<= 1) {
@@ -334,13 +287,13 @@ __global__ void __launch_bounds__(THREADS, 2) siren_field_kernel(FieldArgs a) {
   }
 }
 
-template <bool S, bool TEX>
+template <bool TEX>
 int launch(const FieldArgs& a, int B, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(siren_field_kernel<S, TEX>,
+  cudaError_t err = cudaFuncSetAttribute(siren_field_kernel<TEX>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.N + T - 1) / T, B);
-  siren_field_kernel<S, TEX><<<grid, THREADS, SMEM_BYTES, stream>>>(a);
+  siren_field_kernel<TEX><<<grid, THREADS, SMEM_BYTES, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -349,32 +302,30 @@ int launch(const FieldArgs& a, int B, cudaStream_t stream) {
 extern "C" {
 
 // Returns cudaGetLastError() after the launch (0 = launched).
-int siren_field_full(const float* pts, const float* dirs, const void* w0t, const void* wst,
-                     const float* bst, const void* wvht, const void* wvdt, const float* bv,
-                     const void* wsig, const void* wrgb, const float* bheads, const float* gamma,
-                     const float* beta, const void* alpha, const void* lbeta, void* feat,
-                     float* rgb_sdf, void* raw_h, int B, int N, int D, int serving, void* stream) {
+int siren_field_full(const float* pts, const float* dirs, const float* w0t, const float* wst,
+                     const float* bst, const float* wvht, const float* wvdt, const float* bv,
+                     const float* wsig, const float* wrgb, const float* bheads, const float* gamma,
+                     const float* beta, const float* alpha, const float* lbeta, float* feat,
+                     float* rgb_sdf, float* raw_h, int B, int N, int D, void* stream) {
   FieldArgs a{};
   a.pts = pts; a.dirs = dirs; a.w0t = w0t; a.wst = wst; a.bst = bst;
   a.wvht = wvht; a.wvdt = wvdt; a.bv = bv; a.wsig = wsig; a.wrgb = wrgb; a.bheads = bheads;
   a.gamma = gamma; a.beta = beta; a.alpha = alpha; a.lbeta = lbeta; a.raw_h_in = nullptr;
   a.feat = feat; a.out = rgb_sdf; a.raw_h_out = raw_h;
   a.N = N; a.D = D; a.film_rows = D + 1; a.out_cols = 4;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return serving ? launch<true, false>(a, B, s) : launch<false, false>(a, B, s);
+  return launch<false>(a, B, static_cast<cudaStream_t>(stream));
 }
 
-int siren_field_tex(const void* raw_h, const float* dirs, const void* wvht, const void* wvdt,
-                    const float* bv, const void* wrgb, const float* bheads, const float* gamma_v,
-                    const float* beta_v, const void* alpha, const void* lbeta, void* feat,
-                    float* rgb, int B, int N, int serving, void* stream) {
+int siren_field_tex(const float* raw_h, const float* dirs, const float* wvht, const float* wvdt,
+                    const float* bv, const float* wrgb, const float* bheads, const float* gamma_v,
+                    const float* beta_v, const float* alpha, const float* lbeta, float* feat,
+                    float* rgb, int B, int N, void* stream) {
   FieldArgs a{};
   a.dirs = dirs; a.wvht = wvht; a.wvdt = wvdt; a.bv = bv; a.wrgb = wrgb; a.bheads = bheads;
   a.gamma = gamma_v; a.beta = beta_v; a.alpha = alpha; a.lbeta = lbeta; a.raw_h_in = raw_h;
   a.feat = feat; a.out = rgb;
   a.N = N; a.D = 0; a.film_rows = 1; a.out_cols = 3;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return serving ? launch<true, true>(a, B, s) : launch<false, true>(a, B, s);
+  return launch<true>(a, B, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -100,6 +100,7 @@ class SirenGenerator(nn.Module):
         self.views_linears = FiLMSiren(width + 3, width, style_dim)  # [h, view dirs]
         self.rgb_linear = SirenLinear(width, 3, freq_init=True)
         self.sigma_linear = SirenLinear(width, 1, freq_init=True)
+        self._packs: dict[str, tuple[tuple, dict]] = {}  # precision -> (parameter key, pack)
 
     def _style_row(self, styles: torch.Tensor, i: int) -> torch.Tensor:
         return styles[:, i] if styles.ndim == 3 else styles
@@ -142,5 +143,11 @@ class SirenGenerator(nn.Module):
         return film_vectors(dict(self.named_parameters()), styles, self.depth)
 
     def pack(self, precision: str) -> dict:
-        """The field kernel's weight pack in the precision's io dtype."""
-        return pack_siren_params(dict(self.named_parameters()), self.depth, precision)
+        """The field kernel's weight pack in the precision's io dtype, built once
+        and kept per precision until a parameter is replaced or edited in place
+        (the key holds each parameter's data_ptr and version counter)."""
+        params = dict(self.named_parameters())
+        key = tuple((p.data_ptr(), p._version) for p in params.values())
+        if precision not in self._packs or self._packs[precision][0] != key:
+            self._packs[precision] = (key, pack_siren_params(params, self.depth, precision))
+        return self._packs[precision][1]

@@ -3,9 +3,11 @@ version, and the host helpers.
 
 Counterpart of `e3dge_tpu/ops/pallas/siren_kernel.py` (`_siren_kernel`,
 launched by `siren_query_fused`; host helpers `pack_siren_params` and
-`film_vectors`). The kernel itself is `e3dge_torch/csrc/siren_field.cu`, built
-with nvcc for sm_90a at first use into `e3dge_torch/_build/` (rebuilt when the
-source's hash changes) and bound through ctypes.
+`film_vectors`). The kernels are `e3dge_torch/csrc/siren_field_sm90.cu`
+(`serving`: wgmma on bf16 operands fed by a bulk-copy ring of weight stages)
+and `e3dge_torch/csrc/siren_field.cu` (`highest`: scalar f32 FMA), built with
+nvcc for sm_90a at first use into one library in `e3dge_torch/_build/`
+(rebuilt when a source's hash changes) and bound through ctypes.
 
 Two entries, both the port of the one TPU kernel:
   * `siren_field_full` — the whole field over [B, N] points in one launch, with
@@ -44,10 +46,14 @@ import torch
 from e3dge_torch.ops.fast_math import fast_sin
 
 PRECISIONS = ("highest", "serving")
-KERNEL_WIDTH = 256  # the hidden width csrc/siren_field.cu is built for
+KERNEL_WIDTH = 256  # the hidden width the kernels are built for
+# The serving kernel's weight stages: 256 outputs x 64 inputs of bf16 (one
+# 128-byte row per output), 32 KB, in the 128-byte swizzle wgmma reads.
+STAGE_K = 64
+SWIZZLE_CHUNKS = 8  # 16-byte chunks of a 128-byte row
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "siren_field.cu"
+SOURCES = (_PKG / "csrc" / "siren_field_sm90.cu", _PKG / "csrc" / "siren_field.cu")
 BUILD_DIR = _PKG / "_build"
 
 # launches of each kernel entry; the wrappers add one per launch and nowhere else
@@ -94,11 +100,31 @@ def io_dtype(precision: str) -> torch.dtype:
 # ----------------------------------------------------------------- host helpers
 
 
+def sw128_stages(weight: torch.Tensor) -> torch.Tensor:
+    """An nn.Linear weight [out, in] -> its wgmma B-operand stages [in/64, out,
+    64] in bf16: stage s holds inputs 64s .. 64s+63, one 128-byte row per
+    output (K-major), and within row n the 16-byte chunk c sits at chunk
+    c ^ (n % 8) — the 128-byte swizzle. Each stage is one contiguous 32 KB
+    (for out = 256) bulk copy into shared memory."""
+    n, k = weight.shape
+    if k % STAGE_K:
+        raise ValueError(f"input width {k} is not a multiple of {STAGE_K}")
+    x = weight.detach().to(torch.bfloat16).reshape(n, k // STAGE_K, SWIZZLE_CHUNKS, -1).transpose(0, 1)
+    rows = torch.arange(n, device=weight.device)[:, None] % SWIZZLE_CHUNKS
+    src = torch.arange(SWIZZLE_CHUNKS, device=weight.device)[None, :] ^ rows  # chunk stored at each place
+    x = x.gather(2, src[None, :, :, None].expand(x.shape))
+    return x.reshape(k // STAGE_K, n, STAGE_K).contiguous()
+
+
 def pack_siren_params(params: Mapping[str, torch.Tensor], depth: int, precision: str) -> dict:
     """SirenGenerator parameters (its state_dict names: `pts_linears.{i}.weight`,
-    `views_linears.weight`, `rgb_linear.weight`, ...) -> the kernel's operand
+    `views_linears.weight`, `rgb_linear.weight`, ...) -> the kernels' operand
     pack. Matmul weights are transposed to input-major [in, out] (rgb stays
-    [3, W]) in the precision's io dtype; biases stay f32."""
+    [3, W]) in the precision's io dtype, which the plain version and the
+    `highest` kernel read; biases stay f32. In `serving`, where the width is a
+    multiple of 64, the pack also holds the tensor-core kernel's weight stages
+    (`sw128_stages`): `wring` [D-1, W/64, W, 64] for layers 1..D-1 and
+    `wvring` [W/64, W, 64] for the view layer's h part."""
     dt = io_dtype(precision)
     p = {k: v.detach() for k, v in params.items()}
     width = p["pts_linears.0.weight"].shape[0]
@@ -107,7 +133,7 @@ def pack_siren_params(params: Mapping[str, torch.Tensor], depth: int, precision:
     def w(t):
         return t.to(dt).contiguous()
 
-    return {
+    pack = {
         "w0t": w(p["pts_linears.0.weight"].t()),                                   # [3, W]
         "wst": w(torch.stack([p[f"pts_linears.{i}.weight"].t() for i in range(1, depth)])),
         "bst": torch.stack([p[f"pts_linears.{i}.bias"] for i in range(depth)]).float().contiguous(),
@@ -118,6 +144,10 @@ def pack_siren_params(params: Mapping[str, torch.Tensor], depth: int, precision:
         "wrgb": w(p["rgb_linear.weight"]),                                         # [3, W]
         "bheads": torch.cat([p["rgb_linear.bias"], p["sigma_linear.bias"]]).float().contiguous(),
     }
+    if precision == "serving" and width % STAGE_K == 0:
+        pack["wring"] = torch.stack([sw128_stages(p[f"pts_linears.{i}.weight"]) for i in range(1, depth)])
+        pack["wvring"] = sw128_stages(wv[:, :width])
+    return pack
 
 
 def film_vectors(
@@ -217,7 +247,7 @@ def siren_field_tex_reference(
 _lib = None
 
 
-def _nvcc() -> str:
+def nvcc_path() -> str:
     for cand in (
         shutil.which("nvcc"),
         os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
@@ -228,23 +258,35 @@ def _nvcc() -> str:
 
 
 def build_library() -> tuple[Path, str]:
-    """Compile csrc/siren_field.cu for sm_90a into _build/ unless a library built
-    from the same source bytes is there. Returns (library path, compiler log)."""
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
+    """Compile csrc/*.cu for sm_90a into one library in _build/ unless one built
+    from the same source bytes is there: one nvcc per source, all started
+    together, then a link. Returns (library path, compiler log)."""
+    digest = hashlib.sha256(b"".join(src.read_bytes() for src in SOURCES)).hexdigest()[:16]
     lib = BUILD_DIR / f"libsiren_field_{digest}.so"
     if lib.exists():
         return lib, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-        "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp), str(SOURCE),
+    nvcc = nvcc_path()
+    flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+    tag = f"{digest}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in SOURCES]
+    procs = [
+        subprocess.Popen([nvcc, *flags, "-Xptxas", "-v", "-c", "-o", str(obj), str(src)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(SOURCES, objs)
     ]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    logs = [proc.communicate()[0] for proc in procs]
+    log = "".join(logs)
+    if any(proc.returncode for proc in procs):
+        raise RuntimeError(f"nvcc failed:\n{log}")
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    proc = subprocess.run([nvcc, *flags, "-shared", "-o", str(tmp), *map(str, objs)], capture_output=True, text=True)
+    for obj in objs:
+        obj.unlink()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, lib)
-    return lib, proc.stdout + proc.stderr
+    return lib, log
 
 
 def _library():
@@ -253,10 +295,11 @@ def _library():
         path, _ = build_library()
         lib = ctypes.CDLL(str(path))
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.siren_field_full.argtypes = [vp] * 18 + [i, i, i, i, vp]
-        lib.siren_field_full.restype = i
-        lib.siren_field_tex.argtypes = [vp] * 13 + [i, i, i, vp]
-        lib.siren_field_tex.restype = i
+        for name, n_ptr, n_int in (("siren_field_full", 18, 3), ("siren_field_tex", 13, 2),
+                                   ("siren_field_full_sm90", 18, 3), ("siren_field_tex_sm90", 13, 2)):
+            fn = getattr(lib, name)
+            fn.argtypes = [vp] * n_ptr + [i] * n_int + [vp]
+            fn.restype = i
         _lib = lib
     return _lib
 
@@ -274,19 +317,30 @@ def _check(name: str, t: torch.Tensor, shape: tuple, dtype: torch.dtype, device:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % 16:  # 16-byte vector loads and bulk copies
+        raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def _check_pack(pack: dict, depth: int, width: int, dt: torch.dtype, device) -> None:
-    f32 = torch.float32
-    _check("w0t", pack["w0t"], (3, width), dt, device)
-    _check("wst", pack["wst"], (depth - 1, width, width), dt, device)
-    _check("bst", pack["bst"], (depth, width), f32, device)
-    _check("wvht", pack["wvht"], (width, width), dt, device)
+def _check_pack(pack: dict, depth: int, width: int, precision: str, device, tex: bool = False) -> None:
+    """The pack entries the precision's kernel reads (`tex`: the texture entry's)."""
+    f32, dt = torch.float32, io_dtype(precision)
+    if precision == "serving":
+        _check("wvring", pack["wvring"], (width // STAGE_K, width, STAGE_K), dt, device)
+    else:
+        _check("wvht", pack["wvht"], (width, width), dt, device)
     _check("wvdt", pack["wvdt"], (3, width), dt, device)
     _check("bv", pack["bv"], (width,), f32, device)
-    _check("wsig", pack["wsig"], (width,), dt, device)
     _check("wrgb", pack["wrgb"], (3, width), dt, device)
     _check("bheads", pack["bheads"], (4,), f32, device)
+    if tex:
+        return
+    _check("w0t", pack["w0t"], (3, width), dt, device)
+    _check("bst", pack["bst"], (depth, width), f32, device)
+    _check("wsig", pack["wsig"], (width,), dt, device)
+    if precision == "serving":
+        _check("wring", pack["wring"], (depth - 1, width // STAGE_K, width, STAGE_K), dt, device)
+    else:
+        _check("wst", pack["wst"], (depth - 1, width, width), dt, device)
 
 
 def _cuda_device(t: torch.Tensor) -> torch.device:
@@ -332,19 +386,24 @@ def siren_field_full(
     if alpha is not None:
         _check("alpha", alpha, (b, n, width), dt, device)
         _check("lbeta", lbeta, (b, n, width), dt, device)
-    _check_pack(pack, depth, width, dt, device)
+    _check_pack(pack, depth, width, precision, device)
 
     feat = torch.empty(b, n, width, device=device, dtype=dt)
     rgb_sdf = torch.empty(b, n, 4, device=device, dtype=f32)
     raw_h = torch.empty(b, n, width, device=device, dtype=dt) if return_raw_h else None
     lib = _library()
+    # serving: the tensor-core kernel reads the swizzled stages; highest: the
+    # scalar kernel reads the transposed f32 weights (same argument slots)
+    serving = precision == "serving"
+    wmid, wview = ("wring", "wvring") if serving else ("wst", "wvht")
+    fn = lib.siren_field_full_sm90 if serving else lib.siren_field_full
     with torch.cuda.device(device):
-        err = lib.siren_field_full(
-            _ptr(pts), _ptr(dirs), _ptr(pack["w0t"]), _ptr(pack["wst"]), _ptr(pack["bst"]),
-            _ptr(pack["wvht"]), _ptr(pack["wvdt"]), _ptr(pack["bv"]), _ptr(pack["wsig"]),
+        err = fn(
+            _ptr(pts), _ptr(dirs), _ptr(pack["w0t"]), _ptr(pack[wmid]), _ptr(pack["bst"]),
+            _ptr(pack[wview]), _ptr(pack["wvdt"]), _ptr(pack["bv"]), _ptr(pack["wsig"]),
             _ptr(pack["wrgb"]), _ptr(pack["bheads"]), _ptr(gamma), _ptr(beta),
             _ptr(alpha), _ptr(lbeta), _ptr(feat), _ptr(rgb_sdf), _ptr(raw_h),
-            b, n, depth, int(precision == "serving"), torch.cuda.current_stream(device).cuda_stream,
+            b, n, depth, torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"siren_field_full launch failed: CUDA error {err}")
@@ -387,21 +446,19 @@ def siren_field_tex(
     if alpha is not None:
         _check("alpha", alpha, (b, n, width), dt, device)
         _check("lbeta", lbeta, (b, n, width), dt, device)
-    _check("wvht", pack["wvht"], (width, width), dt, device)
-    _check("wvdt", pack["wvdt"], (3, width), dt, device)
-    _check("bv", pack["bv"], (width,), f32, device)
-    _check("wrgb", pack["wrgb"], (3, width), dt, device)
-    _check("bheads", pack["bheads"], (4,), f32, device)
+    _check_pack(pack, 0, width, precision, device, tex=True)
 
     feat = torch.empty(b, n, width, device=device, dtype=dt)
     rgb = torch.empty(b, n, 3, device=device, dtype=f32)
     lib = _library()
+    serving = precision == "serving"
+    fn = lib.siren_field_tex_sm90 if serving else lib.siren_field_tex
     with torch.cuda.device(device):
-        err = lib.siren_field_tex(
-            _ptr(raw_h), _ptr(dirs), _ptr(pack["wvht"]), _ptr(pack["wvdt"]), _ptr(pack["bv"]),
-            _ptr(pack["wrgb"]), _ptr(pack["bheads"]), _ptr(gamma_v), _ptr(beta_v),
+        err = fn(
+            _ptr(raw_h), _ptr(dirs), _ptr(pack["wvring" if serving else "wvht"]), _ptr(pack["wvdt"]),
+            _ptr(pack["bv"]), _ptr(pack["wrgb"]), _ptr(pack["bheads"]), _ptr(gamma_v), _ptr(beta_v),
             _ptr(alpha), _ptr(lbeta), _ptr(feat), _ptr(rgb),
-            b, n, int(precision == "serving"), torch.cuda.current_stream(device).cuda_stream,
+            b, n, torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"siren_field_tex launch failed: CUDA error {err}")

@@ -24,16 +24,16 @@ def card():
     return torch.device("cuda")
 
 
-def _inputs(card, precision, n=300, sft=True):
+def _inputs(card, precision, n=300, sft=True, b=2):
     g = torch.Generator().manual_seed(n)
     torch.manual_seed(0)
     net = SirenGenerator(8, 256, 256).to(card)
     dt = sf.io_dtype(precision)
-    pts = (torch.rand(2, n, 3, generator=g) * 2 - 1).to(card)
-    dirs = torch.nn.functional.normalize(torch.randn(2, n, 3, generator=g), dim=-1).to(card)
-    styles = (0.3 * torch.randn(2, 9, 256, generator=g)).to(card)
-    alpha = (0.1 * torch.randn(2, n, 256, generator=g)).to(card, dt) if sft else None
-    lbeta = (0.1 * torch.randn(2, n, 256, generator=g)).to(card, dt) if sft else None
+    pts = (torch.rand(b, n, 3, generator=g) * 2 - 1).to(card)
+    dirs = torch.nn.functional.normalize(torch.randn(b, n, 3, generator=g), dim=-1).to(card)
+    styles = (0.3 * torch.randn(b, 9, 256, generator=g)).to(card)
+    alpha = (0.1 * torch.randn(b, n, 256, generator=g)).to(card, dt) if sft else None
+    lbeta = (0.1 * torch.randn(b, n, 256, generator=g)).to(card, dt) if sft else None
     with torch.no_grad():
         gamma, beta = net.film_vectors(styles.to(torch.bfloat16) if precision == "serving" else styles)
     return pts, dirs, net.pack(precision), gamma, beta, alpha, lbeta
@@ -46,9 +46,13 @@ KINDS = ("hidden", "head", "hidden", "hidden", "head")
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision", sf.PRECISIONS)
 @pytest.mark.parametrize("sft", [False, True])
-def test_full_and_texture_entries_match_plain(card, precision, sft):
-    """B=2 (per-item FiLM rows in one launch), N=300 (a ragged last tile)."""
-    args = _inputs(card, precision, sft=sft)
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("n", [1, 127, 128, 129, 300, 128 * 5 + 37])
+def test_full_and_texture_entries_match_plain(card, precision, sft, b, n):
+    """The tile walk: B=2 (per-item FiLM rows in one launch, no tile across
+    two items), N around the serving kernel's 128-point tile and its 64-point
+    warpgroup halves (1, 127, 128, 129), and ragged last tiles (300, 677)."""
+    args = _inputs(card, precision, n=n, sft=sft, b=b)
     sf.reset_launch_counts()
     with torch.no_grad():
         got = sf.siren_field_full(*args, precision=precision, return_raw_h=True)

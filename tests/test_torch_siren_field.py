@@ -209,3 +209,52 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing(field):
     with pytest.raises(ValueError):  # neither CPU nor CUDA: no silent fallback
         sf.siren_field_full(*(t.to("meta") for t in (_t(field["pts"]), _t(field["dirs"]))),
                             {}, None, None, precision="highest")
+
+
+def _unswizzle(stages: torch.Tensor) -> torch.Tensor:
+    """[K/64, out, 64] stages -> the [out, K] weight, by the byte layout the
+    serving kernel reads: element (n, k) of stage k // 64 at row n, 16-byte
+    chunk ((k % 64) // 8) ^ (n % 8), place k % 8."""
+    nst, n_out, _ = stages.shape
+    n, k = np.meshgrid(np.arange(n_out), np.arange(nst * 64), indexing="ij")
+    flat = (k // 64) * n_out * 64 + n * 64 + (((k % 64) // 8) ^ (n % 8)) * 8 + k % 8
+    return stages.reshape(-1)[torch.from_numpy(flat)]
+
+
+def test_serving_pack_weight_stages_unswizzle_bit_for_bit(field):
+    net = field["tm"]
+    pack = net.pack("serving")
+    bits = lambda t: t.to(torch.bfloat16).view(torch.int16)  # noqa: E731
+    for i in range(1, DEPTH):
+        assert torch.equal(bits(_unswizzle(pack["wring"][i - 1])), bits(net.pts_linears[i].weight.detach()))
+    assert torch.equal(bits(_unswizzle(pack["wvring"])), bits(net.views_linears.weight.detach()[:, :WIDTH]))
+    assert "wring" not in net.pack("highest")  # the f32 kernel reads the transposed weights
+
+
+def test_serving_pack_stage_sizes_and_alignment(field):
+    """One stage = one bulk copy of W rows x 128 bytes, contiguous, 16-byte
+    aligned in memory and a whole number of 1024-byte swizzle atoms."""
+    pack = field["tm"].pack("serving")
+    ring, vring = pack["wring"], pack["wvring"]
+    assert ring.shape == (DEPTH - 1, WIDTH // sf.STAGE_K, WIDTH, sf.STAGE_K) and ring.dtype == torch.bfloat16
+    assert vring.shape == (WIDTH // sf.STAGE_K, WIDTH, sf.STAGE_K) and vring.dtype == torch.bfloat16
+    for t in (ring, vring):
+        stage_bytes = t.stride(-3) * t.element_size()
+        assert t.is_contiguous() and stage_bytes == WIDTH * 128 and stage_bytes % 1024 == 0
+        assert t.data_ptr() % 16 == 0
+    with pytest.raises(ValueError):
+        sf.sw128_stages(torch.zeros(WIDTH, 96))
+
+
+def test_pack_is_cached_and_rebuilt_after_an_inplace_edit(field):
+    net = TSiren(DEPTH, WIDTH, STYLE)
+    net.load_state_dict(field["tm"].state_dict())
+    first = net.pack("serving")
+    assert net.pack("serving") is first and net.pack("highest") is not first
+    with torch.no_grad():
+        net.pts_linears[1].weight.mul_(2.0)
+    second = net.pack("serving")
+    assert second is not first
+    want = net.pts_linears[1].weight.detach().to(torch.bfloat16).view(torch.int16)
+    assert torch.equal(_unswizzle(second["wring"][0]).view(torch.int16), want)
+    assert torch.equal(second["wst"][0], net.pts_linears[1].weight.detach().t().to(torch.bfloat16))
