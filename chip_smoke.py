@@ -14,19 +14,33 @@ Phases, each failing loudly (any failure exits non-zero before the last line):
      (the persistent tile walk across items, a ragged last tile), each output
      within its max and mean limits (`siren_field.KERNEL_TOLERANCE`); then each
      entry timed in both precisions at the main path's shapes beside the plain
-     version and the bound;
+     version and the bound; then `siren_field_full` in serving at the shapes
+     of the other paths (the SFT re-render of 4 novel views, B=4, N=64*64*24;
+     one of the 16 occlusion chunks, B=1, N=64*64*23/16*24 = 141,312), checked
+     and timed the same way;
   4. `E3DGE.image2image` at the flagship configuration (bf16, 64^2 x 24 field,
      IR-SE-50 at 256^2, 4-stack hourglass, decoder to 1024^2) on seeded
      weights: launch counts from one call (one launch of each kernel entry),
      a finite, non-constant [1, 3, 1024, 1024] output, ms per inversion over
-     warm calls, then where that time goes (stage times, device busy share,
-     top device kernels);
+     warm calls and the peak memory, then where that time goes (stage times,
+     device busy share, top device kernels);
   5. the same inversion in f32 on the card and on the CPU (plain versions)
      with the same weights, input and decoder noise: max abs difference of
      gen_imgs against a stated tolerance, and the bf16 image of phase 4
-     against the f32 card image (mean relative error).
-Prints a `kernels` JSON line, the nvidia-smi line, and as the last line
-{"ok": true, "device": {...}}.
+     against the f32 card image (mean relative error);
+  6. the other inference paths on phase 4's weights, input and noise, each
+     with its launch counts, output checks, ms per call, device busy ms per
+     call and peak memory:
+     a. `Runner.render_video`, 4 views batched (`render_multiview`);
+     b. the generic `que_render_given_ref` at the ref camera against the
+        same-view image, in f32 (phase 5's model) and in bf16;
+     c. the ref-view occlusion weighting at a novel camera, "exact" and
+        "texture";
+     d. `image2image_global` on the model without the local branch;
+     e. `Runner.latent2surface`: the SDF grid against the plain field's, the
+        marching library's build time, the mesh's size.
+Prints a `kernels` JSON line (with each entry's launches per path), the
+nvidia-smi line, and as the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -219,20 +233,27 @@ def check_kernels(device) -> dict:
     return main_err
 
 
-def field_bounds(n: int, precision: str, depth: int = 8, width: int = 256) -> dict:
-    """Least time for each entry at the main path's shapes: the larger of the
-    bytes (each input read once, each output written once) over the HBM rate
-    and the operations over their pipe's peak. `serving`: bf16 weights and io,
-    the matmuls on the bf16 tensor cores beside the FiLM sines (fast_sin ~ 16
-    f32 flops) on the f32 pipe; `highest`: f32 weights and io, both on the
-    f32 pipe. Also the epilogue's f32-pipe floor: EPILOGUE_INSTR instructions
-    per activation at the f32 instruction rate (half the flop rate)."""
+def field_bounds(n: int, precision: str, depth: int = 8, width: int = 256, batch: int = 1,
+                 sft: bool = False, raw_h: bool = True) -> dict:
+    """Least time for each entry over `batch` items of n points: the larger of
+    the bytes (each input read once, each output written once) over the HBM
+    rate and the operations over their pipe's peak. The full entry reads
+    alpha/lbeta when `sft` and writes raw_h when `raw_h` (the main path's pass
+    1 does; a novel-view re-render reads the SFT and writes no raw_h).
+    `serving`: bf16 weights and io, the matmuls on the bf16 tensor cores beside
+    the FiLM sines (fast_sin ~ 16 f32 flops) on the f32 pipe; `highest`: f32
+    weights and io, both on the f32 pipe. Also the epilogue's f32-pipe floor:
+    EPILOGUE_INSTR instructions per activation at the f32 instruction rate
+    (half the flop rate)."""
     io, f4 = (2 if precision == "serving" else 4), 4
     weights = (3 * width + (depth - 1) * width * width + width * width + 3 * width + width + 3 * width) * io
-    film = 2 * (depth + 1) * width * f4
-    full_bytes = n * 3 * f4 * 2 + weights + film + n * width * io * 2 + n * 4 * f4  # in; feat, raw_h, rgb_sdf
+    film = batch * 2 * (depth + 1) * width * f4
+    n_io = batch * n * width * io  # one [B, N, W] io tensor
+    full_bytes = (batch * n * 3 * f4 * 2 + weights + film + n_io * (1 + int(raw_h) + 2 * int(sft))
+                  + batch * n * 4 * f4)  # pts, dirs, [alpha, lbeta] in; feat, [raw_h], rgb_sdf out
+    n *= batch
     full_mm = 2 * n * width * (3 + (depth - 1) * width + width + 3 + 1 + 3)
-    tex_bytes = n * width * io * 3 + n * 3 * f4 + (width * width + 6 * width) * io + 2 * width * f4 \
+    tex_bytes = n * width * io * 3 + n * 3 * f4 + (width * width + 6 * width) * io + 2 * batch * width * f4 \
         + n * width * io + n * 3 * f4  # raw_h, alpha, lbeta, dirs in; feat, rgb out
     tex_mm = 2 * n * width * (width + 3 + 3)
     out = {}
@@ -272,6 +293,54 @@ def time_kernels(device) -> dict:
     return t
 
 
+def path_cases(n_views: int = 4) -> tuple:
+    """siren_field_full in serving at the shapes of the paths beyond
+    image2image, from the flagship config: (name, B, N, SFT). The SFT
+    re-render of render_multiview's n_views views, and one of query_hit_prob's
+    chunks: with force_background the last of the S query samples is not
+    queried, so H*W*(S-1) points, each the start of an S-sample ray from the
+    ref camera, split into n_chunks launches."""
+    import inspect
+
+    from e3dge_torch.config import flagship_config
+    from e3dge_torch.models.volume_renderer import VolumeFeatureRenderer
+
+    c = flagship_config().renderer
+    n_chunks = inspect.signature(VolumeFeatureRenderer.query_hit_prob).parameters["n_chunks"].default
+    n_query = c.out_im_res ** 2 * (c.n_samples - int(c.force_background))
+    return (("novel-view SFT re-render", n_views, c.out_im_res ** 2 * c.n_samples, True),
+            ("occlusion chunk", 1, -(-n_query // n_chunks) * c.n_samples, False))
+
+
+def check_path_shapes(device) -> None:
+    """Phase 3, second part: `siren_field_full` (serving, no raw_h) against its
+    plain version at `path_cases()`, each output within KERNEL_TOLERANCE, then
+    timed beside the plain version and the bound."""
+    from e3dge_torch.ops import siren_field as sf
+
+    for label, batch, n, sft in path_cases():
+        x = field_inputs(n, "serving", sft, device, batch=batch)
+        args = (x["pts"], x["dirs"], x["pack"], x["gamma"], x["beta"], x["alpha"], x["lbeta"])
+        feat, rgb_sdf, _ = sf.siren_field_full(*args, precision="serving")
+        pfeat, prgb_sdf, _ = sf.siren_field_reference(*args, precision="serving")
+        torch.cuda.synchronize()
+        for name, got, want, kind in (("feat", feat, pfeat, "hidden"), ("rgb_sdf", rgb_sdf, prgb_sdf, "head")):
+            mx, mean, ok = sf.kernel_errors(got, want, kind, "serving")
+            tol_max, tol_mean = sf.KERNEL_TOLERANCE["serving"][kind]
+            log(f"  {label}: B={batch} N={n} sft={int(sft)} full.{name:8s} max {mx:.3e} mean {mean:.3e}"
+                f"  [max<={tol_max:g} mean<={tol_mean:g}] {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"field kernel disagrees with its plain version: {label} {name}")
+        del feat, rgb_sdf, pfeat, prgb_sdf
+        ms = cuda_ms(lambda: sf.siren_field_full(*args, precision="serving"))
+        plain_ms = cuda_ms(lambda: sf.siren_field_reference(*args, precision="serving"), iters=3)
+        bd = field_bounds(n, "serving", batch=batch, sft=sft, raw_h=False)["siren_field_full"]
+        log(f"  {label}: siren_field_full serving B={batch} N={n}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}), epilogue f32-pipe floor {bd['epilogue_floor_ms']:.4f} ms")
+        del x, args
+        torch.cuda.empty_cache()
+
+
 def decoder_noise(cfg, batch: int, seed: int) -> list[torch.Tensor]:
     """Explicit per-layer decoder noise (CPU, seeded): one map at in_res, then
     two at each level up to size."""
@@ -303,12 +372,56 @@ def to_device(images, ml, noise, device):
             [n.to(device) for n in noise])
 
 
-def run_flagship(device) -> tuple[dict, float, torch.Tensor]:
+def check_image(img: torch.Tensor, shape: tuple, what: str) -> float:
+    """Fail unless img is a finite f32 tensor of `shape` whose std exceeds
+    MIN_IMAGE_STD; returns the std."""
+    if tuple(img.shape) != shape or img.dtype != torch.float32:
+        raise AssertionError(f"{what}: unexpected output {tuple(img.shape)} {img.dtype}")
+    if not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"{what}: non-finite output")
+    std = float(img.std())
+    log(f"  {what} {tuple(img.shape)} finite, range [{float(img.min()):.4f}, {float(img.max()):.4f}], "
+        f"std {std:.4f} [floor {MIN_IMAGE_STD:g}]")
+    if not std > MIN_IMAGE_STD:
+        raise AssertionError(f"{what} is constant or vanishing")
+    return std
+
+
+def median_call_ms(fn, calls: int = 10, warmup: int = 2) -> tuple[float, float, float]:
+    """(median, min, max) host-clock ms of fn over `calls` synchronised calls."""
+    for _ in range(warmup):
+        fn()
+    per_call = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        per_call.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(per_call)), min(per_call), max(per_call)
+
+
+def peak_gib() -> float:
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def counted(fn):
+    """(fn's result, the field kernels' launch counts over that one call)."""
+    from e3dge_torch.ops import siren_field as sf
+
+    torch.cuda.synchronize()
+    sf.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(sf.launch_counts)
+
+
+def run_flagship(device):
     """Phase 4: counts from one image2image call, output checks, ms/inversion,
-    and where that time goes. Returns the counts, the median ms and gen_imgs."""
+    peak memory, and where that time goes. Returns the counts, the median ms,
+    gen_imgs, and the model with its device inputs for phase 6."""
     from e3dge_torch.config import flagship_config
     from e3dge_torch.models.e3dge import E3DGE
-    from e3dge_torch.ops import siren_field as sf
     from e3dge_torch.utils.weights import init_weights
 
     cfg = flagship_config()
@@ -319,43 +432,41 @@ def run_flagship(device) -> tuple[dict, float, torch.Tensor]:
     torch.cuda.synchronize()
     log(f"  model built + seeded weights: {time.perf_counter() - t0:.1f} s")
 
-    sf.reset_launch_counts()
-    out = model.image2image(images, ml, noise=noise)
-    torch.cuda.synchronize()
-    counts = dict(sf.launch_counts)
+    torch.cuda.reset_peak_memory_stats()
+    out, counts = counted(lambda: model.image2image(images, ml, noise=noise))
     log(f"  launch counts over one image2image: {counts}")
     if counts != {"siren_field_full": 1, "siren_field_tex": 1}:
         raise AssertionError(f"image2image did not launch each field kernel once: {counts}")
     img = out["res_render_out"]["gen_imgs"].cpu()
-    if tuple(img.shape) != (1, 3, 1024, 1024) or img.dtype != torch.float32:
-        raise AssertionError(f"unexpected output {tuple(img.shape)} {img.dtype}")
-    if not bool(torch.isfinite(img).all()):
-        raise AssertionError("non-finite gen_imgs")
-    std = float(img.std())
-    log(f"  gen_imgs {tuple(img.shape)} finite, range [{float(img.min()):.4f}, {float(img.max()):.4f}], "
-        f"std {std:.4f} [floor {MIN_IMAGE_STD:g}]")
-    if not std > MIN_IMAGE_STD:
-        raise AssertionError("gen_imgs is constant or vanishing")
+    check_image(img, (1, 3, 1024, 1024), "gen_imgs")
 
     call = lambda: model.image2image(images, ml, noise=noise)  # noqa: E731
-    for _ in range(3):
-        call()
     # the path is host-bound at B=1, so host noise shows: per-call times, median
-    per_call = []
-    for _ in range(20):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        call()
-        torch.cuda.synchronize()
-        per_call.append((time.perf_counter() - t0) * 1e3)
-    ms = float(np.median(per_call))
+    ms, lo, hi = median_call_ms(call, calls=20, warmup=3)
     log(f"  image2image flagship bf16, B=1, 256^2 -> 1024^2: median {ms:.2f} ms per inversion "
-        f"({1e3 / ms:.3f} inversions/s) over 20 calls, min {min(per_call):.2f}, max {max(per_call):.2f}; "
-        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        f"({1e3 / ms:.3f} inversions/s) over 20 calls, min {lo:.2f}, max {hi:.2f}; "
+        f"peak memory {peak_gib():.2f} GiB")
     profile_flagship(model, call, ms)
-    del model, out
+    del out
     torch.cuda.empty_cache()
-    return counts, ms, img
+    return counts, ms, img, (model, images, ml, noise)
+
+
+def device_kernels(call, iters: int) -> tuple[dict, dict]:
+    """Device time (us) and launches by kernel name over `iters` calls, from
+    torch.profiler's CUDA events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            call()
+        torch.cuda.synchronize()
+    kernel_us, launches = defaultdict(float), defaultdict(int)
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            kernel_us[ev.name] += ev.time_range.elapsed_us()
+            launches[ev.name] += 1
+    return kernel_us, launches
 
 
 def profile_flagship(model, call, wall_ms: float, iters: int = 5) -> None:
@@ -363,8 +474,6 @@ def profile_flagship(model, call, wall_ms: float, iters: int = 5) -> None:
     modules' forward hooks (host gaps inside a stage included), the device
     busy ms and its share of the unprofiled wall time (torch.profiler), and the
     top device kernels by total time."""
-    from torch.profiler import ProfilerActivity, profile
-
     events = defaultdict(list)
 
     def hooks(name):
@@ -393,15 +502,7 @@ def profile_flagship(model, call, wall_ms: float, iters: int = 5) -> None:
         staged += ms
         log(f"  stage {name:45s} {ms:8.3f} ms  ({len(events[name]) // iters} forward(s) per inversion)")
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            call()
-        torch.cuda.synchronize()
-    kernel_us, launches = defaultdict(float), defaultdict(int)
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            kernel_us[ev.name] += ev.time_range.elapsed_us()
-            launches[ev.name] += 1
+    kernel_us, launches = device_kernels(call, iters)
     busy_ms = sum(kernel_us.values()) / iters / 1e3
     log(f"  device busy {busy_ms:.3f} ms per inversion in {sum(launches.values()) // iters} launches; "
         f"busy share {busy_ms / wall_ms:.3f} of the {wall_ms:.2f} ms median wall; stages sum {staged:.3f} ms")
@@ -409,9 +510,10 @@ def profile_flagship(model, call, wall_ms: float, iters: int = 5) -> None:
         log(f"  kernel {us / iters / 1e3:8.4f} ms {launches[name] // iters:5d}x  {name[:100]}")
 
 
-def run_card_vs_cpu(device, bf16_img: torch.Tensor) -> float:
+def run_card_vs_cpu(device, bf16_img: torch.Tensor):
     """Phase 5: f32 image2image on the card and on the CPU with phase 4's
-    weights, input and noise; then phase 4's bf16 image against the f32 one."""
+    weights, input and noise; then phase 4's bf16 image against the f32 one.
+    Returns the f32 card model with its device inputs and its image."""
     from e3dge_torch.config import flagship_config
     from e3dge_torch.models.e3dge import E3DGE
     from e3dge_torch.utils.weights import init_weights
@@ -436,6 +538,7 @@ def run_card_vs_cpu(device, bf16_img: torch.Tensor) -> float:
                 model.image2image(d_images, d_ml, noise=d_noise)
             torch.cuda.synchronize()
             log(f"  f32 image2image on the card (highest field): {(time.perf_counter() - t0) * 200:.2f} ms per inversion")
+            card = (model, d_images, d_ml, d_noise)
         del model, out
     diff = float((outs["cuda"] - outs["cpu"]).abs().max())
     ok = diff <= TOL_CARD_VS_CPU and math.isfinite(diff)
@@ -450,7 +553,157 @@ def run_card_vs_cpu(device, bf16_img: torch.Tensor) -> float:
         f"{'ok' if ok else 'FAIL'}; f32 std {float(ref.std()):.4f}")
     if not ok:
         raise AssertionError("bf16 image2image drifted from f32")
-    return diff
+    return card, outs["cuda"]
+
+
+# phase 6c's novel camera: azimuth in radians, at the reference's elevation
+NOVEL_AZIM = 0.25
+# the paths whose launch counts the kernels line carries, in order
+PATHS = ("image2image", "render_multiview", "occlusion_exact", "image2image_global", "latent2surface")
+
+
+def run_paths(device, flagship, f32_card, f32_img: torch.Tensor, bf16_img: torch.Tensor) -> dict:
+    """Phase 6: the inference paths beyond image2image on phase 4's model,
+    input and noise (and phase 5's f32 card model for 6b). Each path's launch
+    counts are read over one call and must match; returns them by path."""
+    from e3dge_torch.config import _with
+    from e3dge_torch.models.e3dge import E3DGE
+    from e3dge_torch.ops import siren_field as sf
+    from e3dge_torch.render.camera import camera_params_from_angles
+    from e3dge_torch.runner import Runner
+    from e3dge_torch.utils import mesh
+
+    model, images, ml, noise = flagship
+    cfg = model.cfg
+    runner = Runner(model, ml, device)
+    ref_info = runner.encode_ref(images)
+    paths = {}
+
+    def expect(path, counts, full, tex):
+        log(f"  launch counts over one {path}: {counts}")
+        if counts != {"siren_field_full": full, "siren_field_tex": tex}:
+            raise AssertionError(f"{path} launched {counts}, expected {full} + {tex}")
+        paths[path] = counts
+
+    def timed(what, fn, per=None):
+        ms, lo, hi = median_call_ms(fn)
+        peak = peak_gib()
+        kernel_us, launches = device_kernels(fn, 3)
+        busy = sum(kernel_us.values()) / 3e3
+        field = sum(us for name, us in kernel_us.items() if "siren_field" in name) / 3e3
+        extra = f", {ms / per[0]:.2f} ms per {per[1]}" if per else ""
+        log(f"  {what}: median {ms:.2f} ms per call{extra} over 10 calls (min {lo:.2f}, max {hi:.2f}); "
+            f"device busy {busy:.3f} ms in {sum(launches.values()) // 3} launches (field kernel {field:.3f} ms), "
+            f"busy share {busy / ms:.3f}; peak memory {peak:.2f} GiB")
+
+    log("  [6a] Runner.render_video: 4 views batched (render_multiview)")
+    torch.cuda.reset_peak_memory_stats()
+    video = lambda: runner.render_video(images, n_views=4, batched=True, noise=noise, ref_info=ref_info)  # noqa: E731
+    frames, counts = counted(video)
+    expect("render_multiview", counts, 2, 0)
+    frames = frames.cpu()
+    check_image(frames, (1, 4, 3, 1024, 1024), "frames")
+    d03 = float((frames[:, 0] - frames[:, 3]).abs().mean())
+    log(f"  views 0 and 3: mean abs difference {d03:.4f} [floor {MIN_IMAGE_STD:g}]")
+    if not d03 > MIN_IMAGE_STD:
+        raise AssertionError("the novel views do not differ")
+    del frames
+    timed("render_multiview flagship bf16, B=1 x 4 views", video, per=(4, "view"))
+
+    log("  [6b] generic que_render_given_ref at the ref camera against the same-view image")
+
+    def generic(m, ref, n):
+        return m.que_render_given_ref(ref, ref["cam_settings"], que_info=ref["global_render_out"],
+                                      same_view=False, reuse_backbone=False, noise=n)
+
+    model32, images32, ml32, noise32 = f32_card
+    ref32 = model32.encode_ref_images(images32, ml32)
+    out, counts = counted(lambda: generic(model32, ref32, noise32))
+    expect("generic_novel_view f32", counts, 1, 0)
+    diff = float((out["res_render_out"]["gen_imgs"].float().cpu() - f32_img).abs().max())
+    ok = diff <= TOL_CARD_VS_CPU and math.isfinite(diff)
+    log(f"  f32 generic vs same-view gen_imgs: max abs {diff:.3e} [tol {TOL_CARD_VS_CPU:g}] {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the generic branch disagrees with the same-view one in f32")
+    del out, ref32
+    torch.cuda.reset_peak_memory_stats()
+    out, counts = counted(lambda: generic(model, ref_info, noise))
+    expect("generic_novel_view", counts, 1, 0)
+    img = out["res_render_out"]["gen_imgs"].float().cpu()
+    rel = float(((img - bf16_img).abs() / (bf16_img.abs().max() + 1e-6)).mean())
+    ok = rel < TOL_BF16_VS_F32_REL
+    log(f"  bf16 generic vs same-view gen_imgs: mean rel err {rel:.4e} [tol {TOL_BF16_VS_F32_REL:g}] "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the generic branch disagrees with the same-view one in bf16")
+    del out
+    timed("generic que_render_given_ref flagship bf16, B=1", lambda: generic(model, ref_info, noise))
+
+    log(f"  [6c] ref-view occlusion weighting at azim {NOVEL_AZIM:+g}")
+    cam = camera_params_from_angles(torch.full((1,), NOVEL_AZIM, device=device), ref_info["cam_settings"].viewpoint[:, 1],
+                                    cfg.renderer.out_im_res, cfg.camera.fov_ang, cfg.camera.dist_radius)
+    hit_prob = {}
+    for mode, full in (("exact", 18), ("texture", 2)):
+        model.cfg = _with(cfg, renderer=dict(occlusion_mode=mode))
+        call = lambda: model.que_render_given_ref(ref_info, cam, use_ref_view_weight=True, noise=noise)  # noqa: E731
+        torch.cuda.reset_peak_memory_stats()
+        out, counts = counted(call)
+        expect(f"occlusion_{mode}", counts, full, 0)
+        hp = out["ref_hit_prob"].float()
+        body, last = hp[..., :-1, :], hp[..., -1, :]
+        lo, hi = float(body.min()), float(body.max())
+        log(f"  {mode}: ref_hit_prob {tuple(hp.shape)}, samples before the last in [{lo:.4e}, {hi:.4e}] "
+            f"[within -1e-3, 1+1e-3]; the last (1 - sum) in [{float(last.min()):.4e}, {float(last.max()):.4e}]")
+        if not bool(torch.isfinite(hp).all()) or lo < -1e-3 or hi > 1 + 1e-3:
+            raise AssertionError(f"{mode} ref_hit_prob out of range")
+        check_image(out["res_render_out"]["gen_imgs"].cpu(), (1, 3, 1024, 1024), f"{mode} gen_imgs")
+        hit_prob[mode] = hp
+        del out
+        timed(f"que_render_given_ref + {mode} occlusion flagship bf16, B=1", call)
+    model.cfg = cfg
+    d = (hit_prob["exact"] - hit_prob["texture"]).abs()
+    log(f"  exact vs texture ref_hit_prob: max abs {float(d.max()):.4e}, mean abs {float(d.mean()):.4e}")
+    del hit_prob, d
+
+    log("  [6d] image2image_global (no local branch)")
+    model_g = E3DGE(_with(cfg, renderer=dict(enable_local_model=False)), device=device)
+    model_g.load_state_dict({k: v for k, v in model.state_dict().items()
+                             if k.split(".")[0] in ("encoder", "generator", "volume_discriminator")}, strict=True)
+    call = lambda: model_g.image2image_global(images, ml, noise=noise)  # noqa: E731
+    torch.cuda.reset_peak_memory_stats()
+    out, counts = counted(call)
+    expect("image2image_global", counts, 1, 0)
+    check_image(out["gen_imgs"].cpu(), (1, 3, 1024, 1024), "global gen_imgs")
+    del out
+    timed("image2image_global flagship bf16, B=1", call)
+    del model_g
+
+    log("  [6e] Runner.latent2surface")
+    t0 = time.perf_counter()
+    lib = mesh.build_marching_library()
+    log(f"  marching library built in {time.perf_counter() - t0:.2f} s: {lib.name}")
+    torch.cuda.reset_peak_memory_stats()
+    surf = lambda: runner.latent2surface(ref_info["pred_latents"])  # noqa: E731
+    meshes, counts = counted(surf)
+    expect("latent2surface", counts, 1, 0)
+    verts, faces = meshes[0]
+    log(f"  mesh: {len(verts)} vertices, {len(faces)} faces (seeded weights may give an empty surface)")
+    renderer, styles = model.generator.renderer, ref_info["pred_latents"][0]
+    cam0 = camera_params_from_angles(torch.zeros(1, device=device), torch.zeros(1, device=device),
+                                     cfg.renderer.out_im_res, cfg.camera.fov_ang, cfg.camera.dist_radius)
+    precision = "highest"  # the SDF queries run in f32 in every config, as JAX's
+    sdf = renderer.render_sdf_grid(cam0, styles)
+    args = renderer.field_args(renderer.sdf_grid_points(cam0), None, styles, precision)
+    plain = sf.siren_field_reference(*args, precision=precision)[1][..., 3:4]
+    mx, mean, ok = sf.kernel_errors(sdf.reshape(plain.shape), plain, "head", precision)
+    tol_max, tol_mean = sf.KERNEL_TOLERANCE[precision]["head"]
+    log(f"  SDF grid {tuple(sdf.shape)} against the plain field: max {mx:.3e} mean {mean:.3e} "
+        f"[max<={tol_max:g} mean<={tol_mean:g}] {'ok' if ok else 'FAIL'}; sdf in [{float(sdf.min()):.4f}, "
+        f"{float(sdf.max()):.4f}]")
+    if not ok:
+        raise AssertionError("the SDF grid disagrees with the plain field")
+    timed("latent2surface flagship, B=1 (f32 SDF grid + align + marching + weld)", surf)
+    return paths
 
 
 def main() -> int:
@@ -481,12 +734,20 @@ def main() -> int:
             f"({bd['bound_by']}), epilogue f32-pipe floor {bd['epilogue_floor_ms']:.4f} ms")
     bounds = bounds["serving"]
     times = {name: times[(name, "serving")] for name in ("siren_field_full", "siren_field_tex")}
+    with torch.no_grad():
+        check_path_shapes(device)
 
     log("[4] image2image, flagship config on seeded weights")
-    counts, inv_ms, bf16_img = run_flagship(device)
+    counts, inv_ms, bf16_img, flagship = run_flagship(device)
 
     log("[5] f32 image2image, card vs CPU; bf16 vs f32")
-    run_card_vs_cpu(device, bf16_img)
+    f32_card, f32_img = run_card_vs_cpu(device, bf16_img)
+
+    log("[6] the other inference paths, flagship config")
+    with torch.no_grad():
+        paths = run_paths(device, flagship, f32_card, f32_img, bf16_img)
+    paths["image2image"] = counts
+    del flagship, f32_card
 
     kernels = []
     for name in ("siren_field_full", "siren_field_tex"):
@@ -502,6 +763,7 @@ def main() -> int:
             "bound_ms": bounds[name]["bound_ms"],
             "bound_by": bounds[name]["bound_by"],
             "library_ms": None,  # no single PyTorch call computes the FiLM-SIREN field
+            "launches_by_path": {path: paths[path][name] for path in PATHS},
         })
     log(f"image2image ms per inversion (flagship bf16, B=1): {inv_ms:.4f}")
     print(json.dumps({"kernels": kernels}))

@@ -2,8 +2,8 @@
 counterpart of `e3dge_tpu/models/decoder.py` (reference
 stylesdf_model.py:587-797), standard path only (the JAX package's s2d
 phase-space tail is a TPU layout rewrite, `tests/test_s2d.py` pins it to this
-path, and the port ignores `s2d_min_res*`). Not ported yet: truncation, style
-mixing, the rgbd input and the HFGI condition hook (dead upstream).
+path, and the port ignores `s2d_min_res*`), with truncation and style mixing.
+Not ported yet: the rgbd input and the HFGI condition hook (dead upstream).
 """
 
 from __future__ import annotations
@@ -56,21 +56,53 @@ class Decoder(nn.Module):
         """Mean decoder w over a batch of renderer w (stylesdf_model.py:684-687)."""
         return torch.mean(self.style(renderer_latent), dim=0, keepdim=True)
 
+    def _expand_styles(
+        self,
+        styles: Sequence[torch.Tensor],
+        inject_index: int | None = None,
+        truncation: float = 1.0,
+        truncation_latent: torch.Tensor | None = None,
+        input_is_latent: bool = False,
+    ) -> torch.Tensor:
+        """A list of z / w / W+ -> [B, n_latent, style_dim]
+        (`e3dge_tpu/models/decoder.py:82-108`, reference
+        styles_and_noise_forward): each z is mapped unless input_is_latent,
+        truncated toward truncation_latent when truncation < 1, then one code
+        broadcasts to every layer, or two mix: the first for the layers before
+        inject_index, the second from there on."""
+        if not input_is_latent:
+            styles = [self.style(s) for s in styles]
+        if truncation < 1:
+            if truncation_latent is None:
+                raise ValueError("truncation < 1 needs a truncation_latent")
+            styles = [truncation_latent + truncation * (s - truncation_latent) for s in styles]
+        if len(styles) < 2:
+            s = styles[0]
+            return s if s.ndim == 3 else s[:, None].expand(-1, self.n_latent, -1)
+        if inject_index is None:
+            raise ValueError("style mixing needs an inject_index")
+        return torch.cat([
+            styles[0][:, None].expand(-1, inject_index, -1),
+            styles[1][:, None].expand(-1, self.n_latent - inject_index, -1),
+        ], dim=1)
+
     def forward(
         self,
         features: torch.Tensor,                        # [B, C, in_res, in_res]
-        styles: Sequence[torch.Tensor] | torch.Tensor,  # [z or w] or a W+ [B, n_latent, D]
+        styles: Sequence[torch.Tensor] | torch.Tensor,  # list of z / w, or a W+ [B, n_latent, D]
         input_is_latent: bool = False,
         noise: Sequence[torch.Tensor | None] | None = None,
         return_latents: bool = False,
         generator: torch.Generator | None = None,
+        inject_index: int | None = None,
+        truncation: float = 1.0,
+        truncation_latent: torch.Tensor | None = None,
     ):
-        """-> (image [B, 3, size, size], W+ latent or None). One z / w is mapped
-        (unless input_is_latent) and broadcast to every layer."""
-        s = styles[0] if isinstance(styles, (list, tuple)) else styles
-        if not input_is_latent:
-            s = self.style(s)
-        latent = s if s.ndim == 3 else s[:, None].expand(-1, self.n_latent, -1)
+        """-> (image [B, 3, size, size], W+ latent or None); styles as
+        `_expand_styles` takes them."""
+        if isinstance(styles, torch.Tensor):
+            styles = [styles]
+        latent = self._expand_styles(styles, inject_index, truncation, truncation_latent, input_is_latent)
         if noise is None:
             noise = [None] * self.num_layers
         out = self.conv1(features, latent[:, 0], noise=noise[0], generator=generator)

@@ -1,17 +1,19 @@
-"""E3DGE — single-image inversion through the local branch; counterpart of
+"""E3DGE — single-image inversion and novel views; counterpart of
 `e3dge_tpu/models/e3dge.py` (reference runners: trainer.py:935-1015,
 e3dge_full_runner.py:77-317, e3dge_2dalignonly_runner.py:303).
 
 E0 (FPN encoder) predicts W+ offsets, the volume D's viewpoint head the pose,
 G0 renders once keeping the backbone hidden, the E1 branch (hourglass filter on
-the residual, ADA aligner, a second filter at the query view, one paired
-pixel-aligned lookup, SFT fusion + PE) gives texture modulations, and a
-texture-only re-render on the cached backbone feeds G1. Both G0 field passes
-run the hand-written field kernel on the card.
+the residual, ADA aligner, a second filter at the query view, pixel-aligned
+lookups, SFT fusion + PE) gives texture modulations, and a conditioned
+re-render feeds G1: texture-only on the cached backbone at the reference view
+(`image2image`), the whole field with the SFT on the query render's samples at
+another (`que_render_given_ref`, `render_multiview`). `image2image_global` is
+the global-only path (E0 -> G0 -> G1) of a model built without the local
+branch. Every G0 field pass runs the hand-written field kernel on the card.
 
-Serving only (`train=False`). Not ported yet: other branches of
-`que_render_given_ref` (ROADMAP A11), `image2image_global`, `render_multiview`,
-editing, mesh and training.
+Serving only (`train=False`); training and `synthetic_sample` are not ported
+yet (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from e3dge_torch.models.align import FuseSftMLP, ResidualAligner
 from e3dge_torch.models.discriminator import VolumeRenderDiscriminator
 from e3dge_torch.models.encoders.fpn import HybridGradualStyleEncoderV2
 from e3dge_torch.models.generator import Generator
-from e3dge_torch.models.pifu.local_net import LocalFeatureNet
+from e3dge_torch.models.pifu.local_net import LocalFeatureNet, points_in_image
 from e3dge_torch.ops import adaptive_avg_pool, pos_encoding, upsample_nearest
 from e3dge_torch.render.camera import CameraParams, camera_params_from_angles
 from e3dge_torch.utils.device import resolve_device
@@ -42,21 +44,22 @@ class LatentMeans(NamedTuple):
 class E3DGE(nn.Module):
     """The inversion model. `device=None` means the card: with no CUDA device
     the constructor raises; pass device="cpu" to run the plain versions on
-    the CPU. The module is built in eval mode (BatchNorm uses running stats)."""
+    the CPU. The module is built in eval mode (BatchNorm uses running stats).
+    Without `renderer.enable_local_model` it has no `local`, `grid_align` or
+    `fuse_sft_block` and serves `image2image_global` only."""
 
     def __init__(self, cfg: E3DGEConfig, device: str | torch.device | None = None):
         super().__init__()
         self.cfg = c = cfg
-        if not c.renderer.enable_local_model:
-            raise NotImplementedError("the global-only path (image2image_global) is not ported yet")
         self.encoder = HybridGradualStyleEncoderV2(c.encoder)
         self.generator = Generator(c, full_pipeline=c.full_pipeline)
         self.volume_discriminator = VolumeRenderDiscriminator(init_size=c.renderer.out_im_res)
-        self.local = LocalFeatureNet(
-            c.pifu, modulation_width=c.renderer.width, local_feats_dim=c.renderer.residual_local_feats_dim
-        )
-        self.grid_align = ResidualAligner()
-        self.fuse_sft_block = FuseSftMLP(2 * c.pifu.hourglass_dim + 1, out_ch=c.pifu.hourglass_dim)
+        if c.renderer.enable_local_model:
+            self.local = LocalFeatureNet(
+                c.pifu, modulation_width=c.renderer.width, local_feats_dim=c.renderer.residual_local_feats_dim
+            )
+            self.grid_align = ResidualAligner()
+            self.fuse_sft_block = FuseSftMLP(2 * c.pifu.hourglass_dim + 1, out_ch=c.pifu.hourglass_dim)
         self.device = resolve_device(device)
         self.to(self.device)
         self.eval()
@@ -99,8 +102,30 @@ class E3DGE(nn.Module):
             locations[:, 0], locations[:, 1], c.renderer.out_im_res, c.camera.fov_ang, c.camera.dist_radius
         )
 
+    # -------------------------------------------------------------------- render
+
+    @torch.no_grad()
+    def latent2image(
+        self,
+        pred_latents,
+        camera: CameraParams,
+        local_conditions: tuple[torch.Tensor, torch.Tensor] | None = None,
+        renderer_only: bool = False,
+        z_vals: torch.Tensor | None = None,
+        noise=None,
+        return_raw_h: bool = False,
+        generator: torch.Generator | None = None,
+    ) -> dict[str, Any]:
+        """The generator on a W+ pair: G0 at `camera` (on `z_vals` if given,
+        SFT-modulated by `local_conditions`) and, unless renderer_only, G1."""
+        return self.generator(
+            pred_latents, camera, local_conditions=local_conditions, renderer_only=renderer_only,
+            noise=noise, return_raw_h=return_raw_h, generator=generator, z_vals=z_vals,
+        )
+
     # ------------------------------------------------------------------- E1 path
 
+    @torch.no_grad()
     def encode_ref_images(
         self, images: torch.Tensor, mean_latents: LatentMeans, camera: CameraParams | None = None
     ) -> dict[str, Any]:
@@ -111,7 +136,7 @@ class E3DGE(nn.Module):
         encoder_out = self.image2latents(input_imgs, mean_latents)
         pred_latents = encoder_out["pred_latents"]
         cam = camera if camera is not None else self.image2camsettings(input_imgs)
-        render_out = self.generator(pred_latents, cam, renderer_only=True, return_raw_h=True)
+        render_out = self.latent2image(pred_latents, cam, renderer_only=True, return_raw_h=True)
         thumb_256 = upsample_nearest(render_out["gen_thumb_imgs"], c.pifu.load_size)
         res_gt = input_imgs - thumb_256
         depth = render_out["depth"][..., 0].permute(0, 3, 1, 2)  # [B, 1, H, W]
@@ -129,6 +154,7 @@ class E3DGE(nn.Module):
             "pred_latents": pred_latents,
         }
 
+    @torch.no_grad()
     def que_render_given_ref(
         self,
         ref_info: dict[str, Any],
@@ -141,21 +167,34 @@ class E3DGE(nn.Module):
         noise=None,
         generator: torch.Generator | None = None,
     ) -> dict[str, Any]:
-        """Render the query view conditioned on the reference residual features.
-        Ported: the same-view branch with the backbone cache and no ref-view
-        occlusion weighting (what `image2image` takes)."""
-        if not (same_view and reuse_backbone and not use_ref_view_weight and que_info is not None):
-            raise NotImplementedError(
-                "que_render_given_ref: only same_view=True, reuse_backbone=True, "
-                "use_ref_view_weight=False with que_info is ported (ROADMAP A11)"
-            )
+        """Render the query view conditioned on the reference residual features
+        (`e3dge_tpu/models/e3dge.py:220-418`): 3D-projected ref features + 2D
+        query features aligned by ADA + visibility mask -> SFT fusion + PE ->
+        texture modulations -> full-pipeline render on the query samples.
+
+        que_info: the query view's global render; None renders it first (one
+        field launch). same_view declares que_camera == the ref camera (what
+        `image2image` passes): both lookups are ray-constant, fused into one,
+        and the visibility mask is all ones. reuse_backbone re-renders the
+        texture head only, on que_info's cached `raw_h`; otherwise the whole
+        field runs again with the SFT on que_info's z samples.
+        use_ref_view_weight weights the 3D-projected features by the
+        occlusion of each query point seen from the ref camera
+        (`renderer.occlusion_mode`: "exact" re-integrates a ray per point,
+        "texture" samples the ref render's weights, falling back to exact when
+        ref_info has no `global_render_out`), with the force-background
+        correction on the last sample."""
         c = self.cfg
         pred_latents = ref_info["pred_latents"]
         ref_calibs = ref_info["cam_settings"].calibs
+
+        # 1. the global render at the query view (points, depth, thumb)
+        if que_info is None:
+            que_info = self.latent2image(pred_latents, que_camera, renderer_only=True)
         que_pts = que_info["points"]
         B, H, W, S, _ = que_pts.shape
 
-        # ADA 2D alignment at the query view + the hourglass filter on it
+        # 4 (hoisted). ADA 2D alignment at the query view + the hourglass filter on it
         dt = self.compute_dtype
         que_thumb_256 = upsample_nearest(que_info["gen_thumb_imgs"], c.pifu.load_size)
         aligned_res = self.grid_align(torch.cat([ref_info["orig_res_gt"], que_thumb_256], dim=1).to(dt)).float()
@@ -163,18 +202,45 @@ class E3DGE(nn.Module):
         que_depth_256 = upsample_nearest(que_depth, c.pifu.load_size)
         que_feat = self.local.filter(aligned_res.to(dt), que_depth_256.to(dt))
 
-        # same view: both lookups are ray-constant and share one projection —
-        # one paired sample at the HW sample-0 points, broadcast over S
+        # 2. 3D-projected ref features (at the REF calibs) and 4b. query features
+        # (at the QUE calibs). The que-side lookup is ray-constant: every sample
+        # of a ray projects to the ray's own pixel in the camera that cast it,
+        # so it runs on the HW sample-0 points and broadcasts over S.
         pts_ray = que_pts[:, :, :, 0, :].reshape(B, -1, 3).permute(0, 2, 1)
-        q = self.local.query_pair(ref_info["ref_view_aligned_feat"], que_feat, pts_ray, ref_calibs)
-        fa = q["feats_a"].permute(0, 2, 1).reshape(B, H, W, 1, -1)
-        fb = q["feats_b"].permute(0, 2, 1).reshape(B, H, W, 1, -1)
-        feature_3d = fa.expand(B, H, W, S, fa.shape[-1])
-        feature_2d = fb.expand(B, H, W, S, fb.shape[-1])
-        # the surface points reproject to their own pixel centres: all visible
-        vis_mask = torch.ones(B, H, W, S, 1, device=que_pts.device, dtype=que_pts.dtype)
+        if same_view:
+            # ref IS the query camera: both lookups share one projection
+            proj = self.local.query_pair(ref_info["ref_view_aligned_feat"], que_feat, pts_ray, ref_calibs)
+            fa = proj["feats_a"].permute(0, 2, 1).reshape(B, H, W, 1, -1)
+            fb = proj["feats_b"].permute(0, 2, 1).reshape(B, H, W, 1, -1)
+            feature_3d = fa.expand(B, H, W, S, fa.shape[-1])
+            feature_2d = fb.expand(B, H, W, S, fb.shape[-1])
+        else:
+            # the ref-side lookup is per point: que points projected into the REF view
+            pts_all = que_pts.reshape(B, -1, 3).permute(0, 2, 1)
+            proj = self.local.query(ref_info["ref_view_aligned_feat"], pts_all, ref_calibs)
+            q2 = self.local.query(que_feat, pts_ray, que_camera.calibs)
+            f2 = q2["feats"].permute(0, 2, 1).reshape(B, H, W, 1, -1)
+            feature_2d = f2.expand(B, H, W, S, f2.shape[-1])
+            feature_3d = proj["feats"].permute(0, 2, 1).reshape(B, H, W, S, -1)
 
-        # SFT fusion of (2D feats + visibility) into the 3D feats, + PE; the
+        ref_hit_prob = None
+        if use_ref_view_weight:
+            ref_hit_prob = self._ref_view_weight(ref_info, que_pts)
+            in_img = proj["in_img"]
+            in_img = in_img.reshape(B, H, W, 1 if in_img.shape[1] == H * W else S, 1)
+            ref_hit_prob = ref_hit_prob * in_img.to(feature_3d.dtype)
+            feature_3d = feature_3d * ref_hit_prob
+
+        # 3. visibility: the query surface xyz projected into the ref view. At
+        # the same view each surface point reprojects to its own pixel centre,
+        # so the mask is all ones.
+        if same_view:
+            vis_mask = torch.ones(B, H, W, S, 1, device=que_pts.device, dtype=que_pts.dtype)
+        else:
+            xyz = que_info["xyz"].reshape(B, -1, 3).permute(0, 2, 1)
+            vis_mask = points_in_image(xyz, ref_calibs).reshape(B, H, W, 1, 1).to(que_pts.dtype).expand(B, H, W, S, 1)
+
+        # 5. SFT fusion of (2D feats + visibility) into the 3D feats, + PE; the
         # fusion path runs in the field dtype
         fdt = self.field_dtype
         feature_2d = torch.cat([feature_2d.to(fdt), vis_mask.to(fdt)], dim=-1)
@@ -182,16 +248,66 @@ class E3DGE(nn.Module):
         pe = pos_encoding(que_pts, n_freqs=7).to(fdt)
         alpha, beta = self.local.tex_modulations((fused, pe))
 
-        res_render_out = self.generator.render_cached(
-            pred_latents, que_info, (alpha, beta), noise=noise, generator=generator
-        )
+        # 6. modulations + the conditioned render on the query's samples
+        if reuse_backbone and "raw_h" in que_info:
+            res_render_out = self.generator.render_cached(
+                pred_latents, que_info, (alpha, beta), noise=noise, generator=generator
+            )
+        else:
+            res_render_out = self.latent2image(
+                pred_latents, que_camera, local_conditions=(alpha, beta), z_vals=que_info["z_vals"],
+                noise=noise, generator=generator,
+            )
         return {
             "res_render_out": res_render_out,
             "aligned_res": aligned_res,
-            "in_img_mask": q["in_img"].reshape(B, H, W, -1, 1),
+            # [B, H, W, 1, 1] for the ray-constant same-view lookup, [B, H, W, S, 1] per point
+            "in_img_mask": proj["in_img"].reshape(B, H, W, -1, 1),
             "que_info": que_info,
-            "ref_hit_prob": None,
+            "ref_hit_prob": ref_hit_prob,
         }
+
+    def _ref_view_weight(self, ref_info: dict[str, Any], que_pts: torch.Tensor) -> torch.Tensor:
+        """Occlusion of the query points [B, H, W, S, 3] seen from the ref
+        camera, [B, H, W, S, 1] (reference cycle_runner.py:133-161). With
+        `force_background` all but the last sample are queried and the last
+        takes the leftover mass 1 - sum."""
+        c, renderer = self.cfg.renderer, self.generator.renderer
+        cam = ref_info["cam_settings"]
+        if c.occlusion_mode == "texture" and "global_render_out" in ref_info:
+            ref_vol = ref_info["global_render_out"]["hit_prob"]
+            query = lambda p: renderer.query_hit_prob_texture(p, cam, ref_vol)  # noqa: E731
+        else:
+            query = lambda p: renderer.query_hit_prob(p, cam, ref_info["pred_latents"][0])  # noqa: E731
+        if not c.force_background:
+            return query(que_pts)
+        hp = query(que_pts[..., :-1, :])
+        return torch.cat([hp, 1.0 - hp.sum(dim=-2, keepdim=True)], dim=-2)
+
+    @torch.no_grad()
+    def render_multiview(
+        self,
+        ref_info: dict[str, Any],
+        cameras: CameraParams,
+        n_views: int,
+        noise=None,
+        generator: torch.Generator | None = None,
+    ) -> dict[str, Any]:
+        """Novel views: V views of each of B references rendered as one batch
+        of B*V (`e3dge.py:420-447`). cameras holds B*V entries ordered b0v0,
+        b0v1, ..., b1v0, ...; noise, if given, is a list of [B*V, 1, h, w]
+        maps. The tiled ref_info carries no ref render, so "texture" occlusion
+        falls back to exact here, as in the JAX function."""
+        def tile(x):
+            return x.repeat_interleave(n_views, dim=0)
+
+        tiled_ref = {
+            "ref_view_aligned_feat": tile(ref_info["ref_view_aligned_feat"]),
+            "orig_res_gt": tile(ref_info["orig_res_gt"]),
+            "pred_latents": [tile(ref_info["pred_latents"][0]), tile(ref_info["pred_latents"][1])],
+            "cam_settings": CameraParams(*(tile(f) for f in ref_info["cam_settings"])),
+        }
+        return self.que_render_given_ref(tiled_ref, cameras, noise=noise, generator=generator)
 
     # ------------------------------------------------------------------ user API
 
@@ -215,3 +331,26 @@ class E3DGE(nn.Module):
         )
         out["ref_info"] = ref_info
         return out
+
+    @torch.no_grad()
+    def image2image_global(
+        self,
+        images: torch.Tensor,
+        mean_latents: LatentMeans,
+        camera: CameraParams | None = None,
+        noise=None,
+        generator: torch.Generator | None = None,
+    ) -> dict[str, Any]:
+        """Global-only inversion (the stage-1 path, no E1): E0 -> G0 -> G1 at
+        the estimated pose (`e3dge.py:474-488`)."""
+        encoder_out = self.image2latents(images, mean_latents)
+        cam = camera if camera is not None else self.image2camsettings(images)
+        render_out = self.latent2image(encoder_out["pred_latents"], cam, noise=noise, generator=generator)
+        render_out["cam_settings"] = cam
+        render_out["pred_latents"] = encoder_out["pred_latents"]
+        return render_out
+
+    @torch.no_grad()
+    def query_sdf(self, pts: torch.Tensor, styles: torch.Tensor) -> torch.Tensor:
+        """SDF [B, ..., 1] at world points [B, ..., 3] for renderer styles."""
+        return self.generator.query_sdf(pts, styles)

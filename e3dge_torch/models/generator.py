@@ -1,6 +1,7 @@
 """The StyleSDF generator: mapping + volume renderer (G0) + decoder (G1);
 counterpart of `e3dge_tpu/models/generator.py` (reference
-stylesdf_model.py:800-1189), W+ serving path.
+stylesdf_model.py:800-1189), inference paths: W+ or z input, truncation,
+external z samples, and the SDF queries of the mesh path.
 """
 
 from __future__ import annotations
@@ -47,24 +48,45 @@ class Generator(nn.Module):
         noise: Sequence | None = None,
         return_raw_h: bool = False,
         generator: torch.Generator | None = None,
+        input_is_latent: bool = True,
+        truncation: float = 1.0,
+        truncation_latent: Sequence[torch.Tensor] | None = None,
+        z_vals: torch.Tensor | None = None,
+        no_force_stop: bool = False,
     ) -> dict[str, Any]:
-        """W+ forward (G_pred_latents.forward, stylesdf_model.py:1034-1172):
-        styles = [renderer W+ [B, 9, 256], decoder W+ [B, 10, 512]]."""
-        encoder_latent = styles[0]
-        decoder_latent = styles[1] if len(styles) > 1 else None
-        render_out = self.renderer(camera, encoder_latent, conditions=local_conditions, return_raw_h=return_raw_h)
+        """G_pred_latents.forward (stylesdf_model.py:1034-1172). With
+        input_is_latent (the default here, the encoder's path) styles =
+        [renderer W+ [B, 9, 256], decoder W+ [B, 10, 512]]; otherwise [z], which
+        the mapping net takes to w and the decoder maps on. truncation < 1 pulls
+        both codes toward truncation_latent = (renderer mean, decoder mean)."""
+        if input_is_latent:
+            encoder_latent, decoder_latent = styles[0], (styles[1] if len(styles) > 1 else None)
+        else:
+            encoder_latent, decoder_latent = self.style(styles[0]), None
+        truncate = truncation < 1.0 and truncation_latent is not None
+        if truncate:
+            encoder_latent = truncation_latent[0] + truncation * (encoder_latent - truncation_latent[0])
+        render_out = self.renderer(
+            camera, encoder_latent, conditions=local_conditions, return_raw_h=return_raw_h,
+            z_vals=z_vals, no_force_stop=no_force_stop,
+        )
         render_out["styles"] = encoder_latent
         if renderer_only or not self.full_pipeline:
             render_out["gen_imgs"] = None
             return render_out
-        return self._decode_into(render_out, encoder_latent, decoder_latent, noise, generator)
+        return self._decode_into(
+            render_out, encoder_latent, decoder_latent, noise, generator, input_is_latent,
+            truncation, truncation_latent[1] if truncate else None,
+        )
 
-    def _decode_into(self, render_out, encoder_latent, decoder_latent, noise=None, generator=None):
+    def _decode_into(self, render_out, encoder_latent, decoder_latent, noise=None, generator=None,
+                     input_is_latent=True, truncation=1.0, truncation_latent=None):
         dec_styles = [encoder_latent] if decoder_latent is None else [decoder_latent]
         # the decoder pyramid runs in the configured compute dtype
         dec_in = render_out["features"].to(getattr(torch, self.cfg.dtype))
         gen_imgs, out_latent = self.decoder(
-            dec_in, dec_styles, input_is_latent=True, noise=noise, return_latents=True, generator=generator
+            dec_in, dec_styles, input_is_latent=input_is_latent, noise=noise, return_latents=True,
+            generator=generator, truncation=truncation, truncation_latent=truncation_latent,
         )
         render_out["gen_imgs"] = gen_imgs.float()
         render_out["decoder_latent"] = out_latent
@@ -88,3 +110,11 @@ class Generator(nn.Module):
             render_out["gen_imgs"] = None
             return render_out
         return self._decode_into(render_out, encoder_latent, decoder_latent, noise, generator)
+
+    # -- the mesh path's field queries ------------------------------------------
+
+    def render_sdf_grid(self, camera: CameraParams, styles: torch.Tensor) -> torch.Tensor:
+        return self.renderer.render_sdf_grid(camera, styles)
+
+    def query_sdf(self, pts: torch.Tensor, styles: torch.Tensor) -> torch.Tensor:
+        return self.renderer.query_sdf(pts, styles)

@@ -8,8 +8,9 @@ names and is the eager twin of the field kernel: `backbone` / `geo_head` /
 JAX package does, when given bf16 inputs), which autograd can differentiate.
 The renderer serves inference through the kernel (`film_vectors` + `pack` feed
 `ops/siren_field.py`, whose `siren_field_reference` is the kernel's plain
-version), not through these methods; they are kept for training through
-autograd and for field queries at arbitrary points (ROADMAP A11, A12).
+version), field queries at arbitrary points included (`query_raw`,
+`query_sdf`, the occlusion queries), not through these methods; they are kept
+for training through autograd (ROADMAP A12).
 """
 
 from __future__ import annotations

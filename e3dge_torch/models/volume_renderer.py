@@ -1,16 +1,17 @@
 """VolumeFeatureRenderer — the G0 render (SIREN field + SDF compositing);
 counterpart of `e3dge_tpu/models/volume_renderer.py` (reference
-volume_renderer.py:636-2043), serving path only.
+volume_renderer.py:636-2043), inference paths.
 
   rays -> z samples -> field kernel over the flattened [B, H*W*S] samples ->
   volume integration
 
-Both field passes of `image2image` go through the hand-written kernel
-(`ops/siren_field.py`): `forward` launches `siren_field_full` (writing the
-backbone hidden `raw_h` when asked) and `render_from_backbone` launches
-`siren_field_tex` on that cache. On CPU tensors the same wrappers run their
-plain versions. Not ported yet: the occlusion queries and 3D-supervision
-sampling (`volume_renderer.py:291-602`), and z-jitter for training.
+Every field evaluation goes through the hand-written kernel
+(`ops/siren_field.py`): `forward`, `query_raw`/`query_sdf`, the occlusion
+queries `query_hit_prob`/`query_hit_prob_adapted` (one launch per chunk) and
+`render_sdf_grid` launch `siren_field_full`; `render_from_backbone` launches
+`siren_field_tex` on the cached backbone. On CPU tensors the same wrappers run
+their plain versions. Not ported yet: 3D-supervision sampling
+(`volume_renderer.py:533-582`) and z-jitter for training.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from torch import nn
 
 from e3dge_torch.config import RendererConfig
 from e3dge_torch.models.siren import SirenGenerator
+from e3dge_torch.ops import grid_sample
 from e3dge_torch.ops.siren_field import io_dtype, siren_field_full, siren_field_tex
 from e3dge_torch.render.camera import CameraParams
 from e3dge_torch.render.integrate import volume_integrate
@@ -36,6 +38,10 @@ def field_precision(field_dtype: str | torch.dtype) -> str:
     return "serving" if bf16 else "highest"
 
 
+def _t_vals(n: int, offset_sampling: bool, device) -> torch.Tensor:
+    return torch.linspace(0.0, 1.0 - 1.0 / n if offset_sampling else 1.0, n, device=device)
+
+
 class VolumeFeatureRenderer(nn.Module):
     def __init__(self, cfg: RendererConfig, camera_dist_radius: float = 0.12):
         super().__init__()
@@ -46,46 +52,93 @@ class VolumeFeatureRenderer(nn.Module):
             raise NotImplementedError("raw-density renderers (with_sdf=False) are not ported")
         self.sigmoid_beta = nn.Parameter(torch.full((1,), 0.1))
 
+    # -- field queries -------------------------------------------------------
+
+    def field_args(
+        self, pts: torch.Tensor, dirs: torch.Tensor | None, styles: torch.Tensor, precision: str
+    ) -> tuple[torch.Tensor, ...]:
+        """The field kernel's operands for world points pts [B, ..., 3] and view
+        dirs of the same shape (None: zeros, for SDF-only queries): the points
+        warped into the [-1, 1] box (UniformBoxWarp, 1/camera_dist_radius) and
+        both flattened to [B, N, 3], the precision's weight pack, and the FiLM
+        vectors of styles (`_film`)."""
+        b = pts.shape[0]
+        q_pts = (pts * (1.0 / self.camera_dist_radius)).reshape(b, -1, 3).contiguous()
+        q_dirs = torch.zeros_like(q_pts) if dirs is None else dirs.reshape(b, -1, 3).contiguous()
+        return (q_pts, q_dirs, self.network.pack(precision), *self._film(styles, precision))
+
+    def _film(self, styles: torch.Tensor, precision: str) -> tuple[torch.Tensor, torch.Tensor]:
+        """FiLM vectors gamma, beta [B, D+1, W] f32 of styles, cast to bf16 first
+        in serving as JAX casts the styles to the field dtype."""
+        return self.network.film_vectors(styles.to(torch.bfloat16) if precision == "serving" else styles)
+
+    def _field(self, pts, dirs, styles, conditions=None, precision=None, return_raw_h=False):
+        """One `siren_field_full` launch over pts [B, ..., 3] (in the
+        precision of `field_dtype` unless given) -> feat [B, ..., W] (io dtype),
+        rgb_sdf [B, ..., 4] f32 and raw_h or None, in the points' layout."""
+        precision = precision or field_precision(self.cfg.field_dtype)
+        shp, width = pts.shape[:-1], self.cfg.width
+        args = self.field_args(pts, dirs, styles, precision)
+        alpha = lbeta = None
+        if conditions is not None:
+            alpha, lbeta = (t.reshape(shp[0], -1, width).to(io_dtype(precision)).contiguous() for t in conditions)
+        feat, rgb_sdf, raw_h = siren_field_full(*args, alpha, lbeta, precision=precision, return_raw_h=return_raw_h)
+        return feat.reshape(*shp, width), rgb_sdf.reshape(*shp, 4), None if raw_h is None else raw_h.reshape(*shp, width)
+
+    def query_raw(
+        self,
+        pts: torch.Tensor,
+        viewdirs: torch.Tensor,
+        styles: torch.Tensor,
+        conditions: tuple[torch.Tensor, torch.Tensor] | None = None,
+    ) -> torch.Tensor:
+        """The field at f32 world points pts [B, ..., 3] with view dirs of the
+        same shape: concat([rgb, sdf, features]) [B, ..., 4 + W] in f32
+        (features only with `output_features`), the JAX layout. Runs in f32
+        (`highest`) whatever `field_dtype` says: the JAX network follows its
+        inputs' dtype, and only `forward` casts them to the field dtype."""
+        feat, rgb_sdf, _ = self._field(pts, viewdirs, styles, conditions, precision="highest")
+        return torch.cat([rgb_sdf, feat.float()], dim=-1) if self.cfg.output_features else rgb_sdf
+
+    def query_sdf(self, pts: torch.Tensor, styles: torch.Tensor) -> torch.Tensor:
+        """SDF [B, ..., 1] f32 at f32 world points [B, ..., 3]: the sdf column
+        of one f32 field launch, as `query_raw` (the kernel has no SDF-only
+        entry; the JAX kernel neither)."""
+        _, rgb_sdf, _ = self._field(pts, None, styles, precision="highest")
+        return rgb_sdf[..., 3:4]
+
     def forward(
         self,
         camera: CameraParams,
         styles: torch.Tensor,
         conditions: tuple[torch.Tensor, torch.Tensor] | None = None,
         return_raw_h: bool = False,
+        z_vals: torch.Tensor | None = None,
+        no_force_stop: bool = False,
     ) -> dict[str, Any]:
         """Render a batch of views (the reference `sample_batch` dict, JAX
         layouts: NCHW images/features, [B, H, W, S, C] per-sample tensors).
 
         styles: [B, depth+1, style_dim] W+; conditions: optional local SFT
         (alpha, beta), each [B, H, W, S, width] in the field's io dtype;
-        return_raw_h keeps the backbone hidden for `render_from_backbone`."""
+        return_raw_h keeps the backbone hidden for `render_from_backbone`;
+        z_vals [B, H, W, S] fixes the depth samples (the novel-view SFT
+        re-render on the query render's samples)."""
         c = self.cfg
         res = c.out_im_res
         rays_o, rays_d, viewdirs = get_rays(camera.focal, camera.poses, res, static_viewdirs=c.static_viewdirs)
         b = rays_o.shape[0]
-        z_vals = sample_z_vals(camera.near, camera.far, (b, res, res), c.n_samples, c.offset_sampling)
+        if z_vals is None:
+            z_vals = sample_z_vals(camera.near, camera.far, (b, res, res), c.n_samples, c.offset_sampling)
         pts = rays_to_points(rays_o, rays_d, z_vals)  # [B, H, W, S, 3]
-        shp = pts.shape[:-1]
-        n = shp[1] * shp[2] * shp[3]
-
+        dirs = viewdirs[..., None, :].expand(pts.shape)
         precision = field_precision(c.field_dtype)
-        # JAX casts the styles to the field dtype before the FiLM heads
-        q_styles = styles.to(torch.bfloat16) if precision == "serving" else styles
-        gamma, beta = self.network.film_vectors(q_styles)
-        q_pts = (pts * (1.0 / self.camera_dist_radius)).reshape(b, n, 3)  # UniformBoxWarp
-        q_dirs = viewdirs[..., None, :].expand(pts.shape).reshape(b, n, 3)
-        alpha = lbeta = None
-        if conditions is not None:
-            alpha, lbeta = (t.reshape(b, n, c.width).to(io_dtype(precision)).contiguous() for t in conditions)
-        feat, rgb_sdf, raw_h = siren_field_full(
-            q_pts.contiguous(), q_dirs.contiguous(), self.network.pack(precision), gamma, beta,
-            alpha, lbeta, precision=precision, return_raw_h=return_raw_h,
-        )
-        rgb_sdf = rgb_sdf.reshape(*shp, 4)
-        features = feat.reshape(*shp, c.width).float() if c.output_features else None
+        feat, rgb_sdf, raw_h = self._field(pts, dirs, styles, conditions, precision, return_raw_h)
+        features = feat.float() if c.output_features else None
         out = volume_integrate(
             rgb_sdf[..., :3], rgb_sdf[..., 3:4], features, z_vals, rays_d, pts, self.sigmoid_beta,
-            force_background=c.force_background, fg_mask_threshold=c.fg_mask_threshold,
+            force_background=c.force_background, no_force_stop=no_force_stop,
+            fg_mask_threshold=c.fg_mask_threshold,
         )
         result = {
             "gen_thumb_imgs": out.rgb.permute(0, 3, 1, 2),
@@ -106,7 +159,7 @@ class VolumeFeatureRenderer(nn.Module):
             "far": camera.far,
         }
         if raw_h is not None:
-            result["raw_h"] = raw_h.reshape(*shp, c.width)
+            result["raw_h"] = raw_h
         return result
 
     def render_from_backbone(
@@ -124,8 +177,7 @@ class VolumeFeatureRenderer(nn.Module):
         b, width = shp[0], h.shape[-1]
         n = shp[1] * shp[2] * shp[3]
         precision = field_precision(h.dtype)
-        q_styles = styles.to(torch.bfloat16) if precision == "serving" else styles
-        gamma, beta = self.network.film_vectors(q_styles)
+        gamma, beta = self._film(styles, precision)
         dirs = cached["viewdirs"][..., None, :].expand(*shp, 3).reshape(b, n, 3)
         alpha = lbeta = None
         if conditions is not None:
@@ -141,3 +193,159 @@ class VolumeFeatureRenderer(nn.Module):
         if self.cfg.output_features:
             out["features"] = torch.sum(weights * feat.reshape(*shp, width).float(), dim=-2).permute(0, 3, 1, 2)
         return out
+
+    # -- occlusion / visibility ------------------------------------------------
+
+    @staticmethod
+    def _ref_rays(pts: torch.Tensor, ref_camera: CameraParams) -> tuple[torch.Tensor, torch.Tensor]:
+        """Rays from the ref camera through points [B, N, 3]: the camera-space
+        direction scaled to z = -1 and the same direction in world space."""
+        p_cam = torch.einsum("bij,bnj->bni", ref_camera.extrinsics[:, :, :3], pts) + ref_camera.extrinsics[:, None, :, 3]
+        rays_d_ref = p_cam / (-p_cam[..., 2:3])
+        return rays_d_ref, torch.einsum("bij,bnj->bni", ref_camera.poses[:, :, :3], rays_d_ref)
+
+    def _occlusion_precision(self) -> str:
+        return field_precision(self.cfg.occlusion_field_dtype or self.cfg.field_dtype)
+
+    def query_hit_prob(
+        self,
+        wd_pts: torch.Tensor,
+        ref_camera: CameraParams,
+        ref_styles: torch.Tensor,
+        return_type: str = "weights",
+        n_chunks: int = 16,
+    ) -> torch.Tensor:
+        """Occlusion query (`volume_renderer.py:291-396`; reference
+        `query_hitting_probability_fixed_interval`): re-integrate an
+        n_samples-point ray from the REFERENCE camera through every query point
+        wd_pts [B, H, W, S, 3] and lerp its hit probability (or transmittance)
+        at the point's fractional depth-interval index -> [B, H, W, S, 1].
+
+        The per-point rays run in `n_chunks` chunks, one field launch each, to
+        bound memory: the kernel writes `feat` for every field point. The
+        field runs in `occlusion_field_dtype or field_dtype`; under
+        `static_viewdirs` it sees camera-space directions (reference
+        volume_renderer.py:1420-1423)."""
+        if return_type not in ("weights", "visibility"):
+            raise ValueError(f"return_type must be 'weights' or 'visibility', got {return_type!r}")
+        c = self.cfg
+        B, H, W, S, _ = wd_pts.shape
+        N, S_ray = H * W * S, c.n_samples
+        rays_o = ref_camera.poses[:, :, 3]
+        pts = wd_pts.reshape(B, N, 3)
+        rays_d_ref, rays_d_wd = self._ref_rays(pts, ref_camera)
+        d_norm = torch.linalg.norm(rays_d_wd, dim=-1, keepdim=True)
+        viewdirs = (rays_d_ref if c.static_viewdirs else rays_d_wd) / d_norm
+        t = _t_vals(S_ray, c.offset_sampling, pts.device)
+        z_vals = ref_camera.near.reshape(B, 1, 1) * (1.0 - t) + ref_camera.far.reshape(B, 1, 1) * t  # [B, 1, S_ray]
+        interval = (z_vals[..., 1:2] - z_vals[..., 0:1]) * d_norm  # [B, N, 1]
+        # fractional interval index of the query point along its own ray
+        q0 = rays_o[:, None] + rays_d_wd * z_vals[..., 0:1]
+        idx = torch.linalg.norm(pts - q0, dim=-1, keepdim=True) / interval + 1e-5
+        idx_floor = torch.clamp(torch.floor(idx), 0, S_ray - 1)
+        idx_ceil = torch.clamp(torch.ceil(idx), 0, S_ray - 1)
+
+        precision = self._occlusion_precision()
+        chunk = -(-N // n_chunks)
+        occ = []
+        for lo in range(0, N, chunk):
+            rd, vd = rays_d_wd[:, lo : lo + chunk], viewdirs[:, lo : lo + chunk]
+            zv = z_vals.expand(B, rd.shape[1], S_ray)
+            q = rays_o[:, None, None] + rd[:, :, None] * zv[..., None]  # [B, chunk, S_ray, 3]
+            _, rgb_sdf, _ = self._field(q, vd[:, :, None].expand(q.shape), ref_styles, precision=precision)
+            # normalised viewdirs: the dists are scaled by d_norm through interval
+            out = volume_integrate(
+                rgb_sdf[..., :3], rgb_sdf[..., 3:4], None, zv, vd, q, self.sigmoid_beta,
+                force_background=False, no_force_stop=True, fg_mask_threshold=c.fg_mask_threshold,
+            )
+            occ.append((out.weights if return_type == "weights" else out.visibility)[..., 0])
+        occ = torch.cat(occ, dim=1)  # [B, N, S_ray]
+        floor_v = torch.gather(occ, -1, idx_floor.long())
+        ceil_v = torch.gather(occ, -1, idx_ceil.long())
+        return (floor_v + (idx - idx_floor) * (ceil_v - floor_v)).reshape(B, H, W, S, 1)
+
+    def query_hit_prob_texture(
+        self, wd_pts: torch.Tensor, ref_camera: CameraParams, ref_hit_prob: torch.Tensor
+    ) -> torch.Tensor:
+        """Light-field approximation of `query_hit_prob` (`:398-461`, the
+        `occlusion_mode="texture"` opt-in): sample the ref render's own weight
+        volume ref_hit_prob [B, Hr, Wr, Sr, 1] bilinearly over its ray grid and
+        linearly over the canonical depth-interval grid, with no field
+        evaluation -> [B, H, W, Sq, 1]."""
+        c = self.cfg
+        B, H, W, Sq, _ = wd_pts.shape
+        N = H * W * Sq
+        Hr, Wr, Sr = ref_hit_prob.shape[1:4]
+        pts = wd_pts.reshape(B, N, 3)
+        p_cam = torch.einsum("bij,bnj->bni", ref_camera.extrinsics[:, :, :3], pts) + ref_camera.extrinsics[:, None, :, 3]
+        inv_z = 1.0 / (-p_cam[..., 2])
+        # get_rays' pixel convention: torch-style ndc u = 2 * f * x_ndc / res
+        f = ref_camera.focal.reshape(B, 1)
+        u = 2.0 * f * p_cam[..., 0] * inv_z / Wr
+        v = -2.0 * f * p_cam[..., 1] * inv_z / Hr
+        grid = torch.stack([u, v], dim=-1)[:, :, None, :]  # [B, N, 1, 2]
+        vol = ref_hit_prob[..., 0].permute(0, 3, 1, 2)  # [B, Sr, Hr, Wr]
+        occ = grid_sample(vol, grid)[..., 0].permute(0, 2, 1)  # [B, N, Sr]
+
+        # the ray parameter is the camera-space depth (z = -1 directions)
+        t = _t_vals(Sr, c.offset_sampling, pts.device)
+        near, far = ref_camera.near.reshape(B, 1), ref_camera.far.reshape(B, 1)
+        z0 = near * (1.0 - t[0]) + far * t[0]
+        z1 = near * (1.0 - t[1]) + far * t[1]
+        idx = ((-p_cam[..., 2] - z0) / (z1 - z0) + 1e-5)[..., None]  # [B, N, 1]
+        idx_floor = torch.clamp(torch.floor(idx), 0, Sr - 1)
+        idx_ceil = torch.clamp(torch.ceil(idx), 0, Sr - 1)
+        floor_v = torch.gather(occ, -1, idx_floor.long())
+        ceil_v = torch.gather(occ, -1, idx_ceil.long())
+        w = torch.clamp(idx - idx_floor, 0.0, 1.0)
+        return (floor_v + w * (ceil_v - floor_v)).reshape(B, H, W, Sq, 1)
+
+    def query_hit_prob_adapted(
+        self, wd_pts: torch.Tensor, ref_camera: CameraParams, ref_styles: torch.Tensor, n_chunks: int = 16
+    ) -> torch.Tensor:
+        """Adapted-interval occlusion query (`:463-529`; reference
+        `query_hitting_probability_adapted_interval`): n_samples points from
+        the ref near plane to each query point, integrated, keeping the last
+        sample's hit probability -> [B, H, W, S, 1]. Chunked as
+        `query_hit_prob`."""
+        c = self.cfg
+        B, H, W, S, _ = wd_pts.shape
+        N, S_ray = H * W * S, c.n_samples
+        rays_o = ref_camera.poses[:, :, 3]
+        pts = wd_pts.reshape(B, N, 3)
+        rays_d_ref, rays_d_wd = self._ref_rays(pts, ref_camera)
+        vd_src = rays_d_ref if c.static_viewdirs else rays_d_wd
+        viewdirs = vd_src / torch.linalg.norm(vd_src, dim=-1, keepdim=True)
+        near_pts = rays_o[:, None] + rays_d_wd * ref_camera.near.reshape(B, 1, 1)  # [B, N, 3]
+        t = torch.linspace(0.0, 1.0, S_ray, device=pts.device)[None, None, :, None]  # no offset sampling (ref :1556)
+
+        precision = self._occlusion_precision()
+        chunk = -(-N // n_chunks)
+        hp = []
+        for lo in range(0, N, chunk):
+            np_, p, vd = (x[:, lo : lo + chunk] for x in (near_pts, pts, viewdirs))
+            q = np_[:, :, None] * (1.0 - t) + p[:, :, None] * t  # [B, chunk, S_ray, 3]
+            zv = torch.linalg.norm(q - rays_o[:, None, None], dim=-1)  # true arc length
+            _, rgb_sdf, _ = self._field(q, vd[:, :, None].expand(q.shape), ref_styles, precision=precision)
+            out = volume_integrate(
+                rgb_sdf[..., :3], rgb_sdf[..., 3:4], None, zv, vd, q, self.sigmoid_beta,
+                force_background=False, no_force_stop=True, fg_mask_threshold=c.fg_mask_threshold,
+            )
+            hp.append(out.weights[..., -1, :])  # the query point's own hit probability
+        return torch.cat(hp, dim=1).reshape(B, H, W, S, 1)
+
+    # -- mesh ----------------------------------------------------------------
+
+    def sdf_grid_points(self, camera: CameraParams) -> torch.Tensor:
+        """The frustum samples of `render_sdf_grid`: [B, H, W, S, 3] world
+        points at out_im_res x n_samples, without jitter."""
+        c = self.cfg
+        res = c.out_im_res
+        rays_o, rays_d, _ = get_rays(camera.focal, camera.poses, res)
+        z_vals = sample_z_vals(camera.near, camera.far, (rays_o.shape[0], res, res), c.n_samples, c.offset_sampling)
+        return rays_to_points(rays_o, rays_d, z_vals)
+
+    def render_sdf_grid(self, camera: CameraParams, styles: torch.Tensor) -> torch.Tensor:
+        """Frustum SDF samples for the mesh (`:584-602`): [B, H, W, S, 1] from
+        one field launch at `sdf_grid_points`."""
+        return self.query_sdf(self.sdf_grid_points(camera), styles)

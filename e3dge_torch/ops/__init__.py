@@ -6,6 +6,7 @@ from e3dge_torch.ops.fused_act import fused_leaky_relu, scaled_leaky_relu
 from e3dge_torch.ops.grid_sample import (
     adaptive_avg_pool,
     grid_sample,
+    grid_sample_3d,
     interpolate_bicubic,
     interpolate_bilinear,
     upsample_nearest,
@@ -20,6 +21,7 @@ __all__ = [
     "fast_sin",
     "fused_leaky_relu",
     "grid_sample",
+    "grid_sample_3d",
     "interpolate_bicubic",
     "interpolate_bilinear",
     "make_kernel",

@@ -4,7 +4,8 @@
 The JAX package wrote these as separable matmuls and row gathers because that is
 what a TPU runs fast; the functions are the torch semantics they emulate, so
 here they are the torch calls themselves. `grid_sample_mm` (a TPU lowering of
-the same bilinear sample) has no counterpart: the port has one sampler.
+the same bilinear sample) has no counterpart: the port has one sampler, and
+`grid_sample_3d` its trilinear twin.
 `tests/test_torch_ops.py` holds each against its JAX function.
 """
 
@@ -16,10 +17,26 @@ import torch.nn.functional as F
 
 def grid_sample(x: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     """Bilinear sample of [B, C, H, W] at [B, Hg, Wg, 2] (x, y) locations in
-    [-1, 1]: zeros padding, align_corners=False -> [B, C, Hg, Wg]."""
+    [-1, 1]: zeros padding, align_corners=False -> [B, C, Hg, Wg] in x's dtype.
+    The sample runs in f32 whatever x's dtype, as the JAX sampler computes its
+    corner indices and weights from f32 coordinates: rounding the coordinates
+    to a bf16 feature map's dtype moves samples by up to 1/4 texel on a
+    64-wide map."""
     return F.grid_sample(
-        x, grid.to(x.dtype), mode="bilinear", padding_mode="zeros", align_corners=False
-    )
+        x.float(), grid.float(), mode="bilinear", padding_mode="zeros", align_corners=False
+    ).to(x.dtype)
+
+
+def grid_sample_3d(x: torch.Tensor, grid: torch.Tensor, padding_mode: str = "zeros") -> torch.Tensor:
+    """Trilinear sample of [B, C, D, H, W] at [B, Dg, Hg, Wg, 3] (x, y, z)
+    locations in [-1, 1] (x indexes W, y H, z D), align_corners=True, 'zeros'
+    or 'border' padding -> [B, C, Dg, Hg, Wg]; the frustum-to-cube warp of the
+    mesh path (`e3dge_tpu/ops/grid_sample.py::grid_sample_3d`). Clamping each
+    corner index, as the JAX function does for 'border', equals clamping the
+    coordinate, as torch does."""
+    return F.grid_sample(
+        x.float(), grid.float(), mode="bilinear", padding_mode=padding_mode, align_corners=True
+    ).to(x.dtype)
 
 
 def interpolate_bilinear(

@@ -273,9 +273,12 @@ def state_dicts_from_jax(variables: dict) -> dict[str, dict[str, torch.Tensor]]:
 
 
 def load_jax_variables(model: nn.Module, variables: dict) -> None:
-    """Load the JAX variables into an `E3DGE` port model, strictly per module."""
+    """Load the JAX variables into an `E3DGE` port model, strictly per module
+    (a module that neither side has, as the local branch of a global-only
+    model, is skipped)."""
     for top, sd in state_dicts_from_jax(variables).items():
-        getattr(model, top).load_state_dict(sd, strict=True)
+        if sd or hasattr(model, top):
+            getattr(model, top).load_state_dict(sd, strict=True)
 
 
 _NORMS = (nn.BatchNorm2d, nn.GroupNorm, nn.InstanceNorm2d)

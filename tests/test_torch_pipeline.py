@@ -29,6 +29,7 @@ from e3dge_torch import config as tc
 from e3dge_torch.models.e3dge import E3DGE as TE3DGE
 from e3dge_torch.models.e3dge import LatentMeans as TLM
 from e3dge_torch.ops import siren_field as sf
+from e3dge_torch.runner import Runner
 from e3dge_torch.utils import device as tdevice
 from e3dge_torch.utils.weights import TOPS, init_weights, load_jax_variables
 from e3dge_tpu.models.e3dge import E3DGE as JE3DGE
@@ -150,7 +151,9 @@ def _imports(path: Path) -> set[str]:
 
 def test_port_and_chip_smoke_import_no_jax():
     files = sorted((REPO / "e3dge_torch").rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "field_variants.py"]
-    assert len(files) > 20
+    assert len(files) > 25
+    for name in ("runner.py", "utils/mesh.py", "utils/editing.py", "utils/checkpoint.py"):
+        assert REPO / "e3dge_torch" / name in files
     banned = ("jax", "flax", "e3dge_tpu", "__graft_entry__")
     for path in files:
         for name in _imports(path):
@@ -163,6 +166,16 @@ def test_default_device_is_the_card(monkeypatch):
         return
     with pytest.raises(RuntimeError, match="CUDA"):
         TE3DGE(tc.tiny_full_config())
+    # the global-only model and the Runner default to the card too
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TE3DGE(tc.tiny_test_config())
+    cfg = tc.tiny_test_config()
+    m = TE3DGE(cfg, device="cpu")
+    ml = TLM(torch.zeros(1, cfg.renderer.depth + 1, cfg.renderer.style_dim),
+             torch.zeros(1, cfg.decoder.n_latent, cfg.decoder.style_dim))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Runner(m, ml)
+    assert Runner(m, ml, device="cpu").device == torch.device("cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert tdevice.resolve_device(None) == torch.device("cuda")
     assert tdevice.resolve_device("cpu") == torch.device("cpu")
