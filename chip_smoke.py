@@ -38,13 +38,31 @@ Phases, each failing loudly (any failure exits non-zero before the last line):
         "texture";
      d. `image2image_global` on the model without the local branch;
      e. `Runner.latent2surface`: the SDF grid against the plain field's, the
-        marching library's build time, the mesh's size.
-Prints a `kernels` JSON line (with each entry's launches per path), the
-nvidia-smi line, and as the last line {"ok": true, "device": {...}}.
+        marching library's build time, the mesh's size;
+  7. stage-1 training at `stage1_config`'s full width (64^2 x 18 field
+     samples, SIREN 8 x 256, IR-SE-50 at 256^2, decoder to 1024^2, f32), B=4,
+     seeded weights and perceptual nets, Adam at 5e-5, the stage-1 lambdas:
+     the `highest` field kernel at each of the step's three launch shapes
+     (the sample render, the near-surface and the uniform SDF targets, the
+     last two with zero dirs) against its plain version and timed; 2 warm-up
+     + 5 measured steps, each with exactly 3 + 0 field launches (every
+     differentiable query runs the eager twin), every loss term finite,
+     a gradient on the renderer W+, E0's parameters and BN statistics moved,
+     the generator, volume D and perceptual nets bit-identical; ms per step in
+     four parts (CUDA events), peak memory, device busy per step, the top
+     device kernels; then one step of a reduced config (field 8 x 256 at 32^2,
+     decoder to 128^2, B=2) from one batch on the card and on the CPU (8
+     threads; again at 1 thread for the reference's own spread): the loss
+     terms, E0's gradient as a whole and each leaf within their tolerances,
+     and a control step with the eikonal double backward cut outside them.
+Prints a `kernels` JSON line (with each entry's launches per path, and the
+`highest` entry the stage-1 path launches), the nvidia-smi line, and as the
+last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -312,33 +330,46 @@ def path_cases(n_views: int = 4) -> tuple:
             ("occlusion chunk", 1, -(-n_query // n_chunks) * c.n_samples, False))
 
 
-def check_path_shapes(device) -> None:
-    """Phase 3, second part: `siren_field_full` (serving, no raw_h) against its
-    plain version at `path_cases()`, each output within KERNEL_TOLERANCE, then
-    timed beside the plain version and the bound."""
+def check_and_time_full(label: str, batch: int, n: int, sft: bool, precision: str, device,
+                        sdf_only: bool = False) -> dict:
+    """`siren_field_full` (no raw_h) on seeded operands of `batch` items of n
+    points against its plain version, each output within KERNEL_TOLERANCE,
+    then timed beside the plain version and the bound. `sdf_only`: zero view
+    dirs, as the renderer gives an SDF query (`field_args` with dirs None).
+    Returns the max abs error, both times and the bound."""
     from e3dge_torch.ops import siren_field as sf
 
-    for label, batch, n, sft in path_cases():
-        x = field_inputs(n, "serving", sft, device, batch=batch)
-        args = (x["pts"], x["dirs"], x["pack"], x["gamma"], x["beta"], x["alpha"], x["lbeta"])
-        feat, rgb_sdf, _ = sf.siren_field_full(*args, precision="serving")
-        pfeat, prgb_sdf, _ = sf.siren_field_reference(*args, precision="serving")
+    x = field_inputs(n, precision, sft, device, batch=batch)
+    dirs = torch.zeros_like(x["dirs"]) if sdf_only else x["dirs"]
+    args = (x["pts"], dirs, x["pack"], x["gamma"], x["beta"], x["alpha"], x["lbeta"])
+    with torch.no_grad():
+        feat, rgb_sdf, _ = sf.siren_field_full(*args, precision=precision)
+        pfeat, prgb_sdf, _ = sf.siren_field_reference(*args, precision=precision)
         torch.cuda.synchronize()
+        err = 0.0
         for name, got, want, kind in (("feat", feat, pfeat, "hidden"), ("rgb_sdf", rgb_sdf, prgb_sdf, "head")):
-            mx, mean, ok = sf.kernel_errors(got, want, kind, "serving")
-            tol_max, tol_mean = sf.KERNEL_TOLERANCE["serving"][kind]
-            log(f"  {label}: B={batch} N={n} sft={int(sft)} full.{name:8s} max {mx:.3e} mean {mean:.3e}"
+            mx, mean, ok = sf.kernel_errors(got, want, kind, precision)
+            tol_max, tol_mean = sf.KERNEL_TOLERANCE[precision][kind]
+            log(f"  {label}: B={batch} N={n} sft={int(sft)} {precision} full.{name:8s} max {mx:.3e} mean {mean:.3e}"
                 f"  [max<={tol_max:g} mean<={tol_mean:g}] {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"field kernel disagrees with its plain version: {label} {name}")
+            err = max(err, mx)
         del feat, rgb_sdf, pfeat, prgb_sdf
-        ms = cuda_ms(lambda: sf.siren_field_full(*args, precision="serving"))
-        plain_ms = cuda_ms(lambda: sf.siren_field_reference(*args, precision="serving"), iters=3)
-        bd = field_bounds(n, "serving", batch=batch, sft=sft, raw_h=False)["siren_field_full"]
-        log(f"  {label}: siren_field_full serving B={batch} N={n}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}), epilogue f32-pipe floor {bd['epilogue_floor_ms']:.4f} ms")
-        del x, args
-        torch.cuda.empty_cache()
+        ms = cuda_ms(lambda: sf.siren_field_full(*args, precision=precision))
+        plain_ms = cuda_ms(lambda: sf.siren_field_reference(*args, precision=precision), iters=3)
+    bd = field_bounds(n, precision, batch=batch, sft=sft, raw_h=False)["siren_field_full"]
+    log(f"  {label}: siren_field_full {precision} B={batch} N={n}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}), epilogue f32-pipe floor {bd['epilogue_floor_ms']:.4f} ms")
+    del x, dirs, args
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"]}
+
+
+def check_path_shapes(device) -> None:
+    """Phase 3, second part: `siren_field_full` in serving at `path_cases()`."""
+    for label, batch, n, sft in path_cases():
+        check_and_time_full(label, batch, n, sft, "serving", device)
 
 
 def decoder_noise(cfg, batch: int, seed: int) -> list[torch.Tensor]:
@@ -454,7 +485,9 @@ def run_flagship(device):
 
 def device_kernels(call, iters: int) -> tuple[dict, dict]:
     """Device time (us) and launches by kernel name over `iters` calls, from
-    torch.profiler's CUDA events."""
+    torch.profiler's CUDA events. User annotations on the device timeline (the
+    optimizer's `Optimizer.step#...` range) span kernels, so they are left
+    out."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -463,7 +496,7 @@ def device_kernels(call, iters: int) -> tuple[dict, dict]:
         torch.cuda.synchronize()
     kernel_us, launches = defaultdict(float), defaultdict(int)
     for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
+        if ev.device_type == torch.autograd.DeviceType.CUDA and not getattr(ev, "is_user_annotation", False):
             kernel_us[ev.name] += ev.time_range.elapsed_us()
             launches[ev.name] += 1
     return kernel_us, launches
@@ -559,7 +592,7 @@ def run_card_vs_cpu(device, bf16_img: torch.Tensor):
 # phase 6c's novel camera: azimuth in radians, at the reference's elevation
 NOVEL_AZIM = 0.25
 # the paths whose launch counts the kernels line carries, in order
-PATHS = ("image2image", "render_multiview", "occlusion_exact", "image2image_global", "latent2surface")
+PATHS = ("image2image", "render_multiview", "occlusion_exact", "image2image_global", "latent2surface", "stage1_step")
 
 
 def run_paths(device, flagship, f32_card, f32_img: torch.Tensor, bf16_img: torch.Tensor) -> dict:
@@ -706,6 +739,264 @@ def run_paths(device, flagship, f32_card, f32_img: torch.Tensor, bf16_img: torch
     return paths
 
 
+# Phase 7: stage-1 training at stage1_config's full width
+ST1_BATCH, ST1_WARMUP, ST1_STEPS, ST1_LR = 4, 2, 5, 5e-5
+ST1_TERMS = ("loss_l2", "loss_lpips", "loss_id", "latent_gt", "sdf_rec_loss", "surf_rec_loss",
+             "surface_norm_rec_loss", "eikonal_term", "thumb_rec")
+# field kernel launches per stage-1 step: the frozen-GAN render and its two
+# SDF-target queries, under no_grad; every differentiable query runs the twin
+ST1_LAUNCHES = {"siren_field_full": 3, "siren_field_tex": 0}
+# card vs CPU on one stage-1 step of a reduced config, f32, TF32 off. The
+# CPU reference runs at ST1_CPU_THREADS threads, so its summation order does
+# not move with the host's core count; a second CPU step at 1 thread reads
+# the size of that order's own effect. Gates: each loss term within a
+# relative 1e-3; E0's gradient, all leaves together, within a relative L2 of
+# ST1_TOL_GRAD, and each leaf within ST1_TOL_LEAF (the worst leaf is a deep
+# block's train-mode BN bias, a small sum of large terms). Control: the card
+# step with the eikonal double backward cut (the predicted SDF gradients
+# taken as constants) must fail the gradient gate.
+ST1_TOL_TERM, ST1_TOL_GRAD, ST1_TOL_LEAF = 1e-3, 1e-2, 3e-2
+ST1_CPU_THREADS = 8
+
+
+def st1_reduced_config():
+    """stage1_config cut for the card-vs-CPU check: the field at depth 8 and
+    width 256 (so the kernel samples the batch) rendering 32^2, the decoder to
+    128^2, E0 unchanged."""
+    from e3dge_torch.config import _with, stage1_config
+
+    return _with(stage1_config(), renderer=dict(out_im_res=32), decoder=dict(size=128, in_res=32),
+                 encoder=dict(n_styles_decoder=6)).validate()
+
+
+def st1_model(cfg, device):
+    """(model, mean latents, lpips_fn, id_fn, train state): seeded weights
+    (init_weights), phase 4's seeded mean latents, seeded perceptual nets, E0
+    trainable under Adam at ST1_LR."""
+    from e3dge_torch.models.e3dge import E3DGE
+    from e3dge_torch.training import steps
+    from e3dge_torch.training.perceptual import make_perceptual_fns
+    from e3dge_torch.utils.weights import init_weights
+
+    model = E3DGE(cfg, device=device)
+    init_weights(model, SEED)
+    ml = to_device(*seeded_inputs(cfg, SEED), [], device)[1]
+    lpips_fn, id_fn = make_perceptual_fns(device, seed=SEED)
+    state = steps.create_train_state(model, steps.STAGE1_TRAINABLE, ST1_LR, "adam")
+    return model, ml, lpips_fn, id_fn, state
+
+
+def st1_kernel_cases() -> tuple:
+    """The stage-1 step's three `siren_field_full` launches, all `highest`
+    and without raw_h, from stage1_config: (label, B, N, SDF-only). The
+    frozen-GAN render (out_im_res^2 rays x n_samples), the near-surface SDF
+    targets (one point per ray, `sample_near_surface_grid`) and the uniform
+    ones (`uniform_grid_sampling_num` points, `sample_uniform_grid`)."""
+    from e3dge_torch.config import stage1_config
+
+    c = stage1_config().renderer
+    return (("stage-1 sample render", ST1_BATCH, c.out_im_res ** 2 * c.n_samples, False),
+            ("stage-1 near-surface SDF targets", ST1_BATCH, c.out_im_res ** 2, True),
+            ("stage-1 uniform SDF targets", ST1_BATCH, c.uniform_grid_sampling_num, True))
+
+
+def st1_kernel_check(device) -> dict:
+    """`siren_field_full` in `highest` at each of `st1_kernel_cases()`
+    against its plain version, timed. Returns the render's figures (the
+    kernels line's row) with the max abs error over all three shapes, and
+    each shape's figures under "shapes"."""
+    shapes = []
+    for label, batch, n, sdf_only in st1_kernel_cases():
+        r = check_and_time_full(label, batch, n, False, "highest", device, sdf_only=sdf_only)
+        shapes.append({"label": label, "batch": batch, "n": n, **r})
+    render = {k: shapes[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+    return {**render, "max_abs_err": max(r["max_abs_err"] for r in shapes), "shapes": shapes}
+
+
+def run_stage1(device) -> dict:
+    """Phase 7: stage-1 training at stage1_config (64^2 x 18 field samples,
+    SIREN 8 x 256, IR-SE-50 at 256^2, decoder to 1024^2, f32), B=4:
+    ST1_WARMUP + ST1_STEPS steps, each timed by CUDA events in four parts and
+    its field launches counted; then the checks (finite terms, E0 moved, the
+    rest frozen, a gradient on the renderer W+) and a profile of two steps.
+    Returns the launch counts of the measured steps and the kernel check."""
+    from e3dge_torch.config import stage1_config
+    from e3dge_torch.ops import siren_field as sf
+    from e3dge_torch.training import steps
+
+    kernel = st1_kernel_check(device)
+    cfg = stage1_config()
+    t0 = time.perf_counter()
+    model, ml, lpips_fn, id_fn, state = st1_model(cfg, device)
+    gen = torch.Generator(device).manual_seed(SEED)
+    torch.cuda.synchronize()
+    log(f"  model, mean latents, perceptual nets built: {time.perf_counter() - t0:.1f} s")
+    frozen = {f"model.{k}": v.clone() for k, v in model.state_dict().items() if not k.startswith("encoder.")}
+    frozen.update({f"lpips.{k}": v.clone() for k, v in lpips_fn.state_dict().items()})
+    frozen.update({f"id.{k}": v.clone() for k, v in id_fn.state_dict().items()})
+    e0_before = {k: v.clone() for k, v in model.encoder.state_dict().items()}
+
+    def one_step(retain: bool = False):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        noise = steps.decoder_noise(model, ST1_BATCH, gen)
+        batch = model.synthetic_sample(ST1_BATCH, 1.0, generator=gen, noise=noise)
+        ev[1].record()
+        loss, metrics, out = steps.stage1_loss(model, batch, ml, steps.STAGE1_LAMBDAS, lpips_fn, id_fn, noise=noise)
+        if retain:
+            out["pred_latents"][0].retain_grad()
+        ev[2].record()
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        ev[3].record()
+        steps.optimizer_step(state)
+        ev[4].record()
+        return ev, metrics, out["pred_latents"][0] if retain else None
+
+    torch.cuda.reset_peak_memory_stats()
+    parts, counts = [], []
+    for i in range(ST1_WARMUP + ST1_STEPS):
+        (ev, metrics, w_plus), c = counted(lambda: one_step(retain=i == 0))
+        counts.append(c)
+        if c != ST1_LAUNCHES:
+            raise AssertionError(f"stage-1 step {i} launched {c}, expected {ST1_LAUNCHES}")
+        if i == 0:
+            g = w_plus.grad
+            gmax = float(g.abs().max()) if g is not None else 0.0
+            log(f"  renderer W+ gradient after step 0: max abs {gmax:.3e} (G0 differentiated by the twin)")
+            if not gmax > 0 or not math.isfinite(gmax):
+                raise AssertionError("no gradient reached the renderer W+")
+            del w_plus, g
+        bad = [k for k in ST1_TERMS if k not in metrics or not math.isfinite(float(metrics[k].detach()))]
+        if bad:
+            raise AssertionError(f"stage-1 step {i}: missing or non-finite terms {bad}")
+        if i >= ST1_WARMUP:
+            parts.append([ev[j].elapsed_time(ev[j + 1]) for j in range(4)])
+        log(f"  step {i}{' (warm-up)' if i < ST1_WARMUP else ''}: " + ", ".join(
+            f"{k} {float(metrics[k].detach()):.5g}" for k in ("loss",) + ST1_TERMS))
+    peak = peak_gib()
+    parts = np.asarray(parts)
+    total = parts.sum(axis=1)
+    log(f"  ms per stage-1 step (B={ST1_BATCH}, CUDA events over {ST1_STEPS} steps): median {np.median(total):.2f}, "
+        f"min {total.min():.2f}, max {total.max():.2f}; median sampling {np.median(parts[:, 0]):.2f}, forward+loss "
+        f"{np.median(parts[:, 1]):.2f}, backward {np.median(parts[:, 2]):.2f}, optimizer {np.median(parts[:, 3]):.2f}; "
+        f"peak memory {peak:.2f} GiB")
+    launches = {k: sum(c[k] for c in counts[ST1_WARMUP:]) for k in ST1_LAUNCHES}
+    log(f"  field kernel launches over the {ST1_STEPS} measured steps: {launches} "
+        f"({ST1_LAUNCHES} per step, as expected)")
+
+    after = model.encoder.state_dict()
+    moved_p = sum(not torch.equal(after[k], e0_before[k]) for k, _ in model.encoder.named_parameters())
+    moved_bn = sum(not torch.equal(after[k], e0_before[k]) for k in after if "running_" in k)
+    n_p = len(list(model.encoder.named_parameters()))
+    n_bn = sum("running_" in k for k in after)
+    log(f"  E0: {moved_p} of {n_p} parameters and {moved_bn} of {n_bn} BN running statistics moved")
+    if moved_p < n_p // 2 or moved_bn != n_bn:
+        raise AssertionError("E0's parameters or BN running statistics did not move")
+    now = {f"model.{k}": v for k, v in model.state_dict().items() if not k.startswith("encoder.")}
+    now.update({f"lpips.{k}": v for k, v in lpips_fn.state_dict().items()})
+    now.update({f"id.{k}": v for k, v in id_fn.state_dict().items()})
+    changed = [k for k in frozen if not torch.equal(frozen[k], now[k])]
+    log(f"  generator, volume D and perceptual nets: {len(frozen) - len(changed)} of {len(frozen)} tensors "
+        f"bit-identical")
+    if changed:
+        raise AssertionError(f"frozen tensors changed: {changed[:5]}")
+    if any(p.grad is not None for n, p in model.named_parameters() if not n.startswith("encoder.")):
+        raise AssertionError("a frozen parameter received a gradient")
+
+    wall_ms = float(np.median(total))
+    kernel_us, n_launch = device_kernels(lambda: one_step(), 2)
+    busy = sum(kernel_us.values()) / 2e3
+    field = sum(us for name, us in kernel_us.items() if "siren_field" in name) / 2e3
+    log(f"  device busy {busy:.3f} ms per step in {sum(n_launch.values()) // 2} launches (field kernel {field:.3f} ms); "
+        f"busy share {busy / wall_ms:.3f} of the {wall_ms:.2f} ms median step")
+    for name, us in sorted(kernel_us.items(), key=lambda kv: -kv[1])[:15]:
+        log(f"  kernel {us / 2e3:8.4f} ms {n_launch[name] // 2:5d}x  {name[:100]}")
+    del model, state, lpips_fn, id_fn, frozen, e0_before
+    torch.cuda.empty_cache()
+    return {"launches": launches, "per_step": counts[-1], "kernel": kernel}
+
+
+def grad_gap(got: dict, want: dict) -> tuple[float, str, float]:
+    """(relative L2 of all leaves together, the worst leaf, its relative L2)."""
+    num = sum(float((got[k] - want[k]).double().square().sum()) for k in want)
+    den = sum(float(want[k].double().square().sum()) for k in want)
+    leaf = {k: float((got[k] - want[k]).norm()) / max(float(want[k].norm()), 1e-30) for k in want}
+    worst = max(leaf, key=leaf.get)
+    return math.sqrt(num / den), worst, leaf[worst]
+
+
+def st1_card_vs_cpu(device) -> None:
+    """Phase 7, last part: one stage-1 step of `st1_reduced_config` at B=2,
+    same weights, from one batch made on the card (the kernel samples it):
+    the loss terms and E0 gradients on the card, on the card with the eikonal
+    double backward cut (the control), on the CPU at ST1_CPU_THREADS threads
+    (the reference) and at 1 thread, each compared with the reference."""
+    from unittest import mock
+
+    from e3dge_torch.render.camera import CameraParams
+    from e3dge_torch.training import steps
+
+    def to(x, dev):
+        return CameraParams(*(f.to(dev) for f in x)) if isinstance(x, CameraParams) else x.to(dev)
+
+    eikonal = steps.eikonal_term
+
+    def cut_eikonal(renderer, pts, styles, create_graph=False):
+        return eikonal(renderer, pts, styles, create_graph=False)
+
+    cfg = st1_reduced_config()
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    threads = torch.get_num_threads()
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    runs, data = {}, {}
+    try:
+        for name, dev, n_threads, cut in (("card", device, None, False),
+                                          ("card, double backward cut", device, None, True),
+                                          ("CPU", torch.device("cpu"), ST1_CPU_THREADS, False),
+                                          ("CPU at 1 thread", torch.device("cpu"), 1, False)):
+            t0 = time.perf_counter()
+            torch.set_num_threads(n_threads or threads)
+            model, ml, lpips_fn, id_fn, state = st1_model(cfg, dev)
+            if not data:  # on the card
+                gen = torch.Generator(dev).manual_seed(SEED)
+                data["noise"] = steps.decoder_noise(model, 2, gen)
+                data["batch"] = model.synthetic_sample(2, 1.0, generator=gen, noise=data["noise"])
+            b = {k: to(v, dev) for k, v in data["batch"].items()}
+            with mock.patch.object(steps, "eikonal_term", cut_eikonal) if cut else contextlib.nullcontext():
+                loss, metrics, _ = steps.stage1_loss(model, b, ml, steps.STAGE1_LAMBDAS, lpips_fn, id_fn,
+                                                     noise=[n.to(dev) for n in data["noise"]])
+            loss.backward()
+            runs[name] = ({k: float(metrics[k].detach()) for k in ("loss",) + ST1_TERMS},
+                          {k: p.grad.detach().float().cpu() for k, p in state.params.items()})
+            log(f"  reduced stage-1 step, {name}: {time.perf_counter() - t0:.1f} s (build + one step)")
+            del model, state, lpips_fn, id_fn, loss, metrics, b
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.set_num_threads(threads)
+    m_ref, g_ref = runs["CPU"]
+    log("  terms card / CPU: " + ", ".join(f"{k} {runs['card'][0][k]:.6g} / {m_ref[k]:.6g}" for k in m_ref))
+    gaps = {}
+    for name in ("card", "CPU at 1 thread", "card, double backward cut"):
+        m, g = runs[name]
+        term = max(abs(m[k] - m_ref[k]) / max(abs(m_ref[k]), 1e-30) for k in m_ref)
+        gaps[name] = (term, *grad_gap(g, g_ref))
+        log(f"  {name} vs CPU at {ST1_CPU_THREADS} threads: worst term relative error {term:.3e}; E0 gradient "
+            f"relative L2 {gaps[name][1]:.3e} over {len(g_ref)} leaves, worst leaf {gaps[name][3]:.3e} at "
+            f"{gaps[name][2]}")
+    term, glob, _, leaf = gaps["card"]
+    ok = term < ST1_TOL_TERM and glob < ST1_TOL_GRAD and leaf < ST1_TOL_LEAF
+    log(f"  card vs CPU [terms < {ST1_TOL_TERM:g}, gradient < {ST1_TOL_GRAD:g}, each leaf < {ST1_TOL_LEAF:g}]: "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the stage-1 step disagrees between the card and the CPU")
+    _, glob, _, leaf = gaps["card, double backward cut"]
+    seen = glob >= ST1_TOL_GRAD or leaf >= ST1_TOL_LEAF
+    log(f"  control (double backward cut) {'fails' if seen else 'PASSES'} the gradient gate")
+    if not seen:
+        raise AssertionError("the gradient gate does not see the eikonal double backward")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -748,6 +1039,12 @@ def main() -> int:
         paths = run_paths(device, flagship, f32_card, f32_img, bf16_img)
     paths["image2image"] = counts
     del flagship, f32_card
+    torch.cuda.empty_cache()
+
+    log("[7] stage-1 training, stage1_config at full width")
+    st1 = run_stage1(device)
+    paths["stage1_step"] = st1["per_step"]
+    st1_card_vs_cpu(device)
 
     kernels = []
     for name in ("siren_field_full", "siren_field_tex"):
@@ -765,6 +1062,18 @@ def main() -> int:
             "library_ms": None,  # no single PyTorch call computes the FiLM-SIREN field
             "launches_by_path": {path: paths[path][name] for path in PATHS},
         })
+    # the stage-1 path's kernel: the f32 entry of csrc/siren_field.cu at the
+    # sample render's shape; launches over the measured steps (all `highest`)
+    kernels.append({
+        "name": "siren_field_full (highest)",
+        "route": "cuda",
+        "source": "e3dge_torch/csrc/siren_field.cu",
+        "replaces": "e3dge_tpu/ops/pallas/siren_kernel.py:48",
+        "launches": st1["launches"]["siren_field_full"],
+        **st1["kernel"],
+        "library_ms": None,
+        "launches_by_path": {"stage1_step": st1["per_step"]["siren_field_full"]},
+    })
     log(f"image2image ms per inversion (flagship bf16, B=1): {inv_ms:.4f}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -78,12 +78,13 @@ class RendererConfig:
     # VolumeFeatureRenderer.query_hit_prob_texture).
     occlusion_mode: str = "exact"
     # Field dtype for the frozen-teacher target rendering in synthetic_sample
-    # (training; not ported yet).
+    # (stage-1 training; "bfloat16" samples with the kernel's serving precision).
     sample_field_dtype: str = "float32"
     # JAX package only: its Pallas field query switch. The port always serves
     # inference through its CUDA field kernel (ops/siren_field.py).
     fused_inference: bool = False
-    # JAX package only: rematerialise the field in the training backward.
+    # Rematerialise the differentiable field (the eager twin) in the training
+    # backward instead of storing its activations (torch.utils.checkpoint).
     remat_field: bool = False
 
 

@@ -10,14 +10,20 @@ re-render feeds G1: texture-only on the cached backbone at the reference view
 (`image2image`), the whole field with the SFT on the query render's samples at
 another (`que_render_given_ref`, `render_multiview`). `image2image_global` is
 the global-only path (E0 -> G0 -> G1) of a model built without the local
-branch. Every G0 field pass runs the hand-written field kernel on the card.
+branch. Every G0 field pass of serving runs the hand-written field kernel on
+the card.
 
-Serving only (`train=False`); training and `synthetic_sample` are not ported
-yet (ROADMAP A12).
+Training (stage 1): `image2latents`, `latent2image` and `image2image_global`
+take `train=True` — the caller's grad mode, E0 in train mode for the call —
+and their G0 renders then need a gradient, so they evaluate the eager twin;
+so does `query_sdf(train=True)`; `synthetic_sample` draws frozen-GAN training
+data under no_grad, through the kernel. With `train=False` (the default) the
+entry points serve under no_grad.
 """
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from typing import Any, NamedTuple
 
 import torch
@@ -73,6 +79,20 @@ class E3DGE(nn.Module):
     def field_dtype(self) -> torch.dtype:
         return getattr(torch, self.cfg.renderer.field_dtype)
 
+    @contextmanager
+    def _mode(self, train: bool):
+        """One call's mode, as flax's `train=`: serving (train False) runs under
+        no_grad with E0's BatchNorm on its running statistics; a training call
+        keeps the caller's grad mode and runs E0 in train mode for the call
+        only (batch statistics, running statistics updated)."""
+        was = self.encoder.training
+        self.encoder.train(train)
+        try:
+            with torch.set_grad_enabled(train and torch.is_grad_enabled()):
+                yield
+        finally:
+            self.encoder.train(was)
+
     def mean_latent(self, n: int = 10000, generator: torch.Generator | None = None) -> LatentMeans:
         r_mean, d_mean = self.generator.mean_latent(n, generator)
         c = self.cfg
@@ -83,11 +103,13 @@ class E3DGE(nn.Module):
 
     # ------------------------------------------------------------------ E0 + pose
 
-    def image2latents(self, images: torch.Tensor, mean_latents: LatentMeans) -> dict[str, Any]:
-        """E0 forward; offsets + mean latents -> the predicted W+ pair (f32)."""
+    def image2latents(self, images: torch.Tensor, mean_latents: LatentMeans, train: bool = False) -> dict[str, Any]:
+        """E0 forward; offsets + mean latents -> the predicted W+ pair (f32).
+        train: batch-statistics BatchNorm with the running-stat update, grad kept."""
         c = self.cfg
         x = adaptive_avg_pool(images, c.encoder.input_res).to(self.compute_dtype)
-        out = self.encoder(x, return_featmap=True)
+        with self._mode(train):
+            out = self.encoder(x, return_featmap=True)
         off_r, off_d = out["pred_latents"]
         out["pred_latents"] = [mean_latents.renderer + off_r.float(), mean_latents.decoder + off_d.float()]
         return out
@@ -104,7 +126,6 @@ class E3DGE(nn.Module):
 
     # -------------------------------------------------------------------- render
 
-    @torch.no_grad()
     def latent2image(
         self,
         pred_latents,
@@ -115,13 +136,17 @@ class E3DGE(nn.Module):
         noise=None,
         return_raw_h: bool = False,
         generator: torch.Generator | None = None,
+        train: bool = False,
     ) -> dict[str, Any]:
         """The generator on a W+ pair: G0 at `camera` (on `z_vals` if given,
-        SFT-modulated by `local_conditions`) and, unless renderer_only, G1."""
-        return self.generator(
-            pred_latents, camera, local_conditions=local_conditions, renderer_only=renderer_only,
-            noise=noise, return_raw_h=return_raw_h, generator=generator, z_vals=z_vals,
-        )
+        SFT-modulated by `local_conditions`) and, unless renderer_only, G1.
+        train keeps the grad (G0 then runs the twin where the latents need
+        one) and lets `generator` jitter the depth samples."""
+        with self._mode(train):
+            return self.generator(
+                pred_latents, camera, local_conditions=local_conditions, renderer_only=renderer_only,
+                noise=noise, return_raw_h=return_raw_h, generator=generator, z_vals=z_vals, train=train,
+            )
 
     # ------------------------------------------------------------------- E1 path
 
@@ -332,7 +357,6 @@ class E3DGE(nn.Module):
         out["ref_info"] = ref_info
         return out
 
-    @torch.no_grad()
     def image2image_global(
         self,
         images: torch.Tensor,
@@ -340,17 +364,99 @@ class E3DGE(nn.Module):
         camera: CameraParams | None = None,
         noise=None,
         generator: torch.Generator | None = None,
+        train: bool = False,
     ) -> dict[str, Any]:
         """Global-only inversion (the stage-1 path, no E1): E0 -> G0 -> G1 at
-        the estimated pose (`e3dge.py:474-488`)."""
-        encoder_out = self.image2latents(images, mean_latents)
-        cam = camera if camera is not None else self.image2camsettings(images)
-        render_out = self.latent2image(encoder_out["pred_latents"], cam, noise=noise, generator=generator)
+        `camera` or the estimated pose (`e3dge.py:474-488`). train: the
+        stage-1 forward (see `_mode`; `generator` would also jitter the depth
+        samples, which JAX's stage-1 step does not ask for)."""
+        with self._mode(train):
+            encoder_out = self.image2latents(images, mean_latents, train=train)
+            cam = camera if camera is not None else self.image2camsettings(images)
+            render_out = self.latent2image(encoder_out["pred_latents"], cam, noise=noise, generator=generator,
+                                           train=train)
         render_out["cam_settings"] = cam
         render_out["pred_latents"] = encoder_out["pred_latents"]
         return render_out
 
+    def query_sdf(self, pts: torch.Tensor, styles: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """SDF [B, ..., 1] at world points [B, ..., 3] for renderer styles.
+        Serving (train False) launches the kernel under no_grad; train keeps
+        the caller's grad mode, so the query is differentiable (the twin)."""
+        with self._mode(train):
+            return self.generator.query_sdf(pts, styles)
+
+    # ------------------------------------------------- frozen-GAN data sampling
+
     @torch.no_grad()
-    def query_sdf(self, pts: torch.Tensor, styles: torch.Tensor) -> torch.Tensor:
-        """SDF [B, ..., 1] at world points [B, ..., 3] for renderer styles."""
-        return self.generator.query_sdf(pts, styles)
+    def synthetic_sample(
+        self,
+        batch_size: int,
+        pose_scale: float | torch.Tensor = 1.0,
+        pair_same_id: bool = False,
+        renderer_only: bool = False,
+        generator: torch.Generator | None = None,
+        draws: dict[str, torch.Tensor] | None = None,
+        noise=None,
+    ) -> dict[str, Any]:
+        """GAN-as-dataset sampling (`e3dge.py:496-558`, reference
+        DATASETGAN_3D.sample_with_rand_cams): z (odd/even sharing an identity
+        with pair_same_id), gaussian cameras scaled by the pose curriculum's
+        `pose_scale`, the frozen generator's render in
+        `renderer.sample_field_dtype`, and 3D supervision: the SDF near the
+        surface and in the box, queried with the mapped w (`latent_gt`). Data,
+        not a differentiable path: under no_grad, so the render and both SDF
+        queries launch the field kernel.
+
+        The random draws come from `generator` in JAX's split order (z,
+        azimuth, elevation, near-surface noise, uniform points), then the
+        decoder noise. `draws` may give any of them: "z" [B, style_dim],
+        "azim" / "elev" [B] standard normals, "near_noise" [B, res, res, 3]
+        standard normals, "uniform_pts" [B, n, 3] points in the box. `noise`
+        gives the decoder noise maps (JAX's stage-1 step renders the sample and
+        the inversion with the same "noise" rng, so the same maps)."""
+        c, dev = self.cfg, self.device
+        draws = draws or {}
+        res, n_uni = c.renderer.out_im_res, c.renderer.uniform_grid_sampling_num
+
+        def draw(name, shape):
+            return draws[name].to(dev) if name in draws else torch.randn(shape, device=dev, generator=generator)
+
+        z = draw("z", (batch_size, c.renderer.style_dim))
+        azim_n, elev_n = draw("azim", (batch_size,)), draw("elev", (batch_size,))
+        near_noise = draw("near_noise", (batch_size, res, res, 3))
+        r = self.generator.renderer.camera_dist_radius
+        uni_pts = draws["uniform_pts"].to(dev) if "uniform_pts" in draws else \
+            (torch.rand(batch_size, n_uni, 3, device=dev, generator=generator) * 2 - 1) * r
+        if pair_same_id:  # make_pair_same_noise (training_utils.py:21-29)
+            z = z[::2].repeat_interleave(2, dim=0)
+        cc = c.camera
+        azim = cc.azim_mean + pose_scale * cc.azim_range * azim_n
+        elev = cc.elev_mean + pose_scale * cc.elev_range * elev_n
+        cam = camera_params_from_angles(azim, elev, res, cc.fov_ang, cc.dist_radius)
+        render_out = self.generator([z], cam, input_is_latent=False, renderer_only=renderer_only,
+                                    noise=noise, generator=generator, field_dtype=c.renderer.sample_field_dtype)
+        w = render_out["styles"]  # [B, style_dim]: the mapped latent, the latent_gt target
+        renderer = self.generator.renderer
+        near_pts, near_sdf, near_valid = renderer.sample_near_surface_grid(
+            render_out["xyz"], w, stdv=c.renderer.surface_sampling_stdv, noise=near_noise)
+        uni_pts, uni_sdf, uni_valid = renderer.sample_uniform_grid(batch_size, n_uni, w, pts=uni_pts)
+        return {
+            "images": render_out["gen_imgs"],
+            "thumb_images": render_out["gen_thumb_imgs"],
+            "cam_settings": cam,
+            "latent_gt": w,
+            "xyz": render_out["xyz"],
+            "depth": render_out["depth"],
+            "mask": render_out["mask"],
+            "sdf": render_out["sdf"],
+            "points": render_out["points"],
+            "z_vals": render_out["z_vals"],
+            "hit_prob": render_out["hit_prob"],
+            "near_pts": near_pts,
+            "near_sdf": near_sdf,
+            "near_valid": near_valid,
+            "uniform_pts": uni_pts,
+            "uniform_sdf": uni_sdf,
+            "uniform_valid": uni_valid,
+        }

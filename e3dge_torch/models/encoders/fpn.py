@@ -8,9 +8,10 @@ Taps c128@block2, c64@block6, c32@block20, c16@block23 feed an FPN
 from p32 and 10 decoder rows from one block on p128, repeated. Outputs are
 offsets that `E3DGE.image2latents` adds to the mean latents.
 
-Inference port: BatchNorm runs on its running statistics only. The dtype-
-following primitives here (`Conv2d`, `BatchNorm2d`, `PReLU`) compute in their
-input's dtype from f32 parameters, as every layer of the JAX package does.
+BatchNorm follows flax's: running statistics in eval mode, batch statistics
+and a running-stat update in train mode (stage-1 training). The dtype-following
+primitives here (`Conv2d`, `BatchNorm2d`, `PReLU`) compute in their input's
+dtype from f32 parameters, as every layer of the JAX package does.
 """
 
 from __future__ import annotations
@@ -39,13 +40,26 @@ class Conv2d(nn.Conv2d):
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """Eval-mode BatchNorm2d: running statistics, f32 arithmetic, output in the
-    input dtype. Training statistics are not ported."""
+    """BatchNorm2d with `flax.linen.BatchNorm`'s semantics (momentum 0.9,
+    `e3dge_tpu/models/encoders/fpn.py:88-112`), f32 arithmetic, output in the
+    input dtype. Eval mode normalises by the running statistics. Train mode
+    normalises by the batch's mean and BIASED variance and folds both into the
+    running statistics as 0.9 * running + 0.1 * batch (torch's own train mode
+    folds in the unbiased variance, which flax does not). The variance is
+    torch's `var_mean`, the statistic flax takes as E[x^2] - E[x]^2, with
+    less cancellation."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError("the port runs BatchNorm in eval mode only; call .eval()")
-        y = F.batch_norm(x.float(), self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps)
+        xf = x.float()
+        if not self.training:
+            y = F.batch_norm(xf, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps)
+            return y.to(x.dtype)
+        var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
+        with torch.no_grad():
+            self.running_mean.mul_(0.9).add_(0.1 * mean)
+            self.running_var.mul_(0.9).add_(0.1 * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
         return y.to(x.dtype)
 
 

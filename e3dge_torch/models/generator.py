@@ -1,7 +1,8 @@
 """The StyleSDF generator: mapping + volume renderer (G0) + decoder (G1);
 counterpart of `e3dge_tpu/models/generator.py` (reference
-stylesdf_model.py:800-1189), inference paths: W+ or z input, truncation,
-external z samples, and the SDF queries of the mesh path.
+stylesdf_model.py:800-1189): W+ or z input, truncation, external z samples,
+the training render (`train=`, z-jitter from `generator`), a per-call field
+dtype, and the SDF queries.
 """
 
 from __future__ import annotations
@@ -53,12 +54,17 @@ class Generator(nn.Module):
         truncation_latent: Sequence[torch.Tensor] | None = None,
         z_vals: torch.Tensor | None = None,
         no_force_stop: bool = False,
+        train: bool = False,
+        field_dtype: str | None = None,
     ) -> dict[str, Any]:
         """G_pred_latents.forward (stylesdf_model.py:1034-1172). With
         input_is_latent (the default here, the encoder's path) styles =
         [renderer W+ [B, 9, 256], decoder W+ [B, 10, 512]]; otherwise [z], which
         the mapping net takes to w and the decoder maps on. truncation < 1 pulls
-        both codes toward truncation_latent = (renderer mean, decoder mean)."""
+        both codes toward truncation_latent = (renderer mean, decoder mean).
+        `generator` draws the decoder noise that `noise` does not give and,
+        with `train`, the renderer's z-jitter; field_dtype overrides the
+        renderer's `field_dtype` for this call."""
         if input_is_latent:
             encoder_latent, decoder_latent = styles[0], (styles[1] if len(styles) > 1 else None)
         else:
@@ -68,7 +74,7 @@ class Generator(nn.Module):
             encoder_latent = truncation_latent[0] + truncation * (encoder_latent - truncation_latent[0])
         render_out = self.renderer(
             camera, encoder_latent, conditions=local_conditions, return_raw_h=return_raw_h,
-            z_vals=z_vals, no_force_stop=no_force_stop,
+            z_vals=z_vals, no_force_stop=no_force_stop, train=train, generator=generator, field_dtype=field_dtype,
         )
         render_out["styles"] = encoder_latent
         if renderer_only or not self.full_pipeline:

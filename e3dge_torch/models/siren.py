@@ -6,11 +6,11 @@ This module holds the field's parameters under the reference's state_dict
 names and is the eager twin of the field kernel: `backbone` / `geo_head` /
 `tex_head` compute the field layer by layer (in bf16 with `fast_sin`, as the
 JAX package does, when given bf16 inputs), which autograd can differentiate.
-The renderer serves inference through the kernel (`film_vectors` + `pack` feed
+The renderer evaluates the twin for every field call that needs a gradient
+(training: the stage-1 inversion's render, its SDF queries and eikonal terms)
+and launches the kernel for every other one (`film_vectors` + `pack` feed
 `ops/siren_field.py`, whose `siren_field_reference` is the kernel's plain
-version), field queries at arbitrary points included (`query_raw`,
-`query_sdf`, the occlusion queries), not through these methods; they are kept
-for training through autograd (ROADMAP A12).
+version, for its tests only).
 """
 
 from __future__ import annotations

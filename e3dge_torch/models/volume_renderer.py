@@ -1,17 +1,22 @@
 """VolumeFeatureRenderer — the G0 render (SIREN field + SDF compositing);
 counterpart of `e3dge_tpu/models/volume_renderer.py` (reference
-volume_renderer.py:636-2043), inference paths.
+volume_renderer.py:636-2043).
 
-  rays -> z samples -> field kernel over the flattened [B, H*W*S] samples ->
+  rays -> z samples -> field over the flattened [B, H*W*S] samples ->
   volume integration
 
-Every field evaluation goes through the hand-written kernel
-(`ops/siren_field.py`): `forward`, `query_raw`/`query_sdf`, the occlusion
-queries `query_hit_prob`/`query_hit_prob_adapted` (one launch per chunk) and
-`render_sdf_grid` launch `siren_field_full`; `render_from_backbone` launches
-`siren_field_tex` on the cached backbone. On CPU tensors the same wrappers run
-their plain versions. Not ported yet: 3D-supervision sampling
-(`volume_renderer.py:533-582`) and z-jitter for training.
+Every field evaluation picks its route by one rule (`_field`): a call that
+needs a gradient evaluates the eager twin (`models/siren.py`) under autograd,
+in the precision the JAX network would use (rematerialised in the backward
+under `remat_field`); every other call launches the hand-written kernel
+(`ops/siren_field.py`), which has no backward. So `forward`,
+`query_raw`/`query_sdf`, the occlusion queries
+`query_hit_prob`/`query_hit_prob_adapted` (one launch per chunk) and
+`render_sdf_grid` launch `siren_field_full` when serving or sampling
+training data, and `render_from_backbone` launches `siren_field_tex` on the
+cached backbone. On CPU tensors the same wrappers run their plain versions.
+The training parts: z-jitter (`forward(train=, generator=)`), the
+3D-supervision samplers and the module function `eikonal_term`.
 """
 
 from __future__ import annotations
@@ -19,7 +24,9 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from e3dge_torch.config import RendererConfig
 from e3dge_torch.models.siren import SirenGenerator
@@ -72,11 +79,25 @@ class VolumeFeatureRenderer(nn.Module):
         in serving as JAX casts the styles to the field dtype."""
         return self.network.film_vectors(styles.to(torch.bfloat16) if precision == "serving" else styles)
 
+    def needs_grad(self, *tensors: torch.Tensor | None) -> bool:
+        """The route rule: grad mode is on, and a tensor given or a field
+        parameter requires grad."""
+        if not torch.is_grad_enabled():
+            return False
+        return any(t is not None and t.requires_grad for t in tensors) or any(
+            p.requires_grad for p in self.network.parameters()
+        )
+
     def _field(self, pts, dirs, styles, conditions=None, precision=None, return_raw_h=False):
-        """One `siren_field_full` launch over pts [B, ..., 3] (in the
-        precision of `field_dtype` unless given) -> feat [B, ..., W] (io dtype),
-        rgb_sdf [B, ..., 4] f32 and raw_h or None, in the points' layout."""
+        """The field over pts [B, ..., 3] (in the precision of `field_dtype`
+        unless given) -> feat [B, ..., W] (io dtype; None from the twin for an
+        SDF-only call, dirs None), rgb_sdf [B, ..., 4] f32 and raw_h or None,
+        in the points' layout. A call that `needs_grad` runs the twin, every
+        other one `siren_field_full` launch."""
         precision = precision or field_precision(self.cfg.field_dtype)
+        cond = conditions or (None, None)
+        if self.needs_grad(pts, dirs, styles, *cond):
+            return self._twin_field(pts, dirs, styles, conditions, precision, return_raw_h)
         shp, width = pts.shape[:-1], self.cfg.width
         args = self.field_args(pts, dirs, styles, precision)
         alpha = lbeta = None
@@ -84,6 +105,36 @@ class VolumeFeatureRenderer(nn.Module):
             alpha, lbeta = (t.reshape(shp[0], -1, width).to(io_dtype(precision)).contiguous() for t in conditions)
         feat, rgb_sdf, raw_h = siren_field_full(*args, alpha, lbeta, precision=precision, return_raw_h=return_raw_h)
         return feat.reshape(*shp, width), rgb_sdf.reshape(*shp, 4), None if raw_h is None else raw_h.reshape(*shp, width)
+
+    def _twin_field(self, pts, dirs, styles, conditions, precision, return_raw_h):
+        """`_field` through the eager twin under autograd, as the JAX XLA
+        network computes it (`volume_renderer.py:193-214`): points, dirs and
+        styles cast to the precision's dtype (f32, or bf16 with fast_sin for
+        `serving`), the points warped, the network on the flattened [B, N, C]
+        samples. `remat_field` wraps it in a non-reentrant checkpoint, which
+        recomputes it in the backward (`nn.remat` in JAX)."""
+        dt = io_dtype(precision)
+        shp, b = pts.shape[:-1], pts.shape[0]
+        net = self.network
+
+        def flat(t):
+            return t.reshape(b, -1, t.shape[-1])
+
+        def run(p, v, s, alpha, lbeta):
+            h = net.backbone(p, s)
+            sdf = net.geo_head(h)
+            if v is None:
+                return None, F.pad(sdf.float(), (3, 0)), h
+            rgb, feat = net.tex_head(h, v, s, None if alpha is None else (alpha, lbeta))
+            return feat, torch.cat([rgb, sdf], dim=-1).float(), h
+
+        p = flat(pts.to(dt) * (1.0 / self.camera_dist_radius))
+        v = None if dirs is None else flat(dirs.to(dt))
+        alpha, lbeta = (None, None) if conditions is None else (flat(t) for t in conditions)
+        args = (p, v, styles.to(dt), alpha, lbeta)
+        feat, rgb_sdf, h = checkpoint(run, *args, use_reentrant=False) if self.cfg.remat_field else run(*args)
+        return (None if feat is None else feat.reshape(*shp, -1), rgb_sdf.reshape(*shp, 4),
+                h.reshape(*shp, -1) if return_raw_h else None)
 
     def query_raw(
         self,
@@ -103,7 +154,8 @@ class VolumeFeatureRenderer(nn.Module):
     def query_sdf(self, pts: torch.Tensor, styles: torch.Tensor) -> torch.Tensor:
         """SDF [B, ..., 1] f32 at f32 world points [B, ..., 3]: the sdf column
         of one f32 field launch, as `query_raw` (the kernel has no SDF-only
-        entry; the JAX kernel neither)."""
+        entry; the JAX kernel neither), or of the twin's backbone and sdf head
+        when the call needs a gradient (`eikonal_term`, shape supervision)."""
         _, rgb_sdf, _ = self._field(pts, None, styles, precision="highest")
         return rgb_sdf[..., 3:4]
 
@@ -115,6 +167,9 @@ class VolumeFeatureRenderer(nn.Module):
         return_raw_h: bool = False,
         z_vals: torch.Tensor | None = None,
         no_force_stop: bool = False,
+        train: bool = False,
+        generator: torch.Generator | None = None,
+        field_dtype: str | None = None,
     ) -> dict[str, Any]:
         """Render a batch of views (the reference `sample_batch` dict, JAX
         layouts: NCHW images/features, [B, H, W, S, C] per-sample tensors).
@@ -123,16 +178,21 @@ class VolumeFeatureRenderer(nn.Module):
         (alpha, beta), each [B, H, W, S, width] in the field's io dtype;
         return_raw_h keeps the backbone hidden for `render_from_backbone`;
         z_vals [B, H, W, S] fixes the depth samples (the novel-view SFT
-        re-render on the query render's samples)."""
+        re-render on the query render's samples). The samples are jittered
+        only with `cfg.perturb`, `train` and a `generator` (JAX: with a key,
+        `volume_renderer.py:180-190`). field_dtype overrides `cfg.field_dtype`
+        (the frozen-GAN samples' `sample_field_dtype`)."""
         c = self.cfg
         res = c.out_im_res
         rays_o, rays_d, viewdirs = get_rays(camera.focal, camera.poses, res, static_viewdirs=c.static_viewdirs)
         b = rays_o.shape[0]
         if z_vals is None:
-            z_vals = sample_z_vals(camera.near, camera.far, (b, res, res), c.n_samples, c.offset_sampling)
+            perturb = c.perturb and train and generator is not None
+            z_vals = sample_z_vals(camera.near, camera.far, (b, res, res), c.n_samples, c.offset_sampling,
+                                   perturb=perturb, generator=generator)
         pts = rays_to_points(rays_o, rays_d, z_vals)  # [B, H, W, S, 3]
         dirs = viewdirs[..., None, :].expand(pts.shape)
-        precision = field_precision(c.field_dtype)
+        precision = field_precision(field_dtype or c.field_dtype)
         feat, rgb_sdf, raw_h = self._field(pts, dirs, styles, conditions, precision, return_raw_h)
         features = feat.float() if c.output_features else None
         out = volume_integrate(
@@ -349,3 +409,46 @@ class VolumeFeatureRenderer(nn.Module):
         """Frustum SDF samples for the mesh (`:584-602`): [B, H, W, S, 1] from
         one field launch at `sdf_grid_points`."""
         return self.query_sdf(self.sdf_grid_points(camera), styles)
+
+    # -- 3D-supervision sampling (DATASETGAN_3D support) -----------------------
+
+    def sample_uniform_grid(
+        self, batch: int, n: int, styles: torch.Tensor, generator: torch.Generator | None = None,
+        pts: torch.Tensor | None = None,
+    ):
+        """Uniform points in the [-r, r]^3 box (r = camera_dist_radius) with
+        their SDF and an all-ones validity mask (`:533-538`, reference
+        volume_renderer.py:945-963). pts [batch, n, 3], if given, are the
+        draw; else it comes from `generator` on the styles' device."""
+        r = self.camera_dist_radius
+        if pts is None:
+            pts = (torch.rand(batch, n, 3, device=styles.device, generator=generator) * 2 - 1) * r
+        sdf = self.query_sdf(pts, styles)
+        return pts, sdf, torch.ones_like(sdf)
+
+    def sample_near_surface_grid(
+        self, surface_xyz: torch.Tensor, styles: torch.Tensor, stdv: float = 0.03,
+        generator: torch.Generator | None = None, noise: torch.Tensor | None = None,
+    ):
+        """Surface points [B, H, W, 3] moved by stdv * N(0, 1), their SDF and
+        a mask of those inside the box (`:540-549`, reference
+        volume_renderer.py:965-1003). noise, if given, is the N(0, 1) draw."""
+        if noise is None:
+            noise = torch.randn(surface_xyz.shape, device=surface_xyz.device, generator=generator)
+        pts = surface_xyz + stdv * noise
+        valid = (pts.abs().amax(dim=-1, keepdim=True) < self.camera_dist_radius).to(pts.dtype)
+        return pts, self.query_sdf(pts, styles), valid
+
+
+def eikonal_term(
+    renderer: VolumeFeatureRenderer, pts: torch.Tensor, styles: torch.Tensor, create_graph: bool = True
+) -> torch.Tensor:
+    """d(sdf)/d(pts) per point [..., 3] (`volume_renderer.py:605-615`,
+    reference get_eikonal_term): each point's SDF depends on its own
+    coordinates only, so the gradient of the summed SDF is the per-point one.
+    With create_graph (the stage-1 loss differentiates it again, with respect
+    to the encoder) the result stays in the graph; without it, it is data."""
+    with torch.enable_grad():
+        p = pts.detach().requires_grad_(True)
+        (grad,) = torch.autograd.grad(renderer.query_sdf(p, styles).sum(), p, create_graph=create_graph)
+    return grad

@@ -5,6 +5,7 @@ from e3dge_torch.ops.fast_math import fast_sin
 from e3dge_torch.ops.fused_act import fused_leaky_relu, scaled_leaky_relu
 from e3dge_torch.ops.grid_sample import (
     adaptive_avg_pool,
+    adaptive_avg_pool2d,
     grid_sample,
     grid_sample_3d,
     interpolate_bicubic,
@@ -16,6 +17,7 @@ from e3dge_torch.ops.upfirdn2d import blur, downsample2x, make_kernel, upfirdn2d
 
 __all__ = [
     "adaptive_avg_pool",
+    "adaptive_avg_pool2d",
     "blur",
     "downsample2x",
     "fast_sin",

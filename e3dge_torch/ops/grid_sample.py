@@ -70,6 +70,16 @@ def adaptive_avg_pool(x: torch.Tensor, out: int) -> torch.Tensor:
     return upsample_nearest(x, out)
 
 
+def adaptive_avg_pool2d(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
+    """torch.nn.AdaptiveAvgPool2d on NCHW with its exact bin rule: output cell
+    i averages input rows floor(i * in / out) .. ceil((i + 1) * in / out) - 1,
+    for any sizes, up or down (`e3dge_tpu/ops/grid_sample.py:285-307`; the ID
+    loss pools a 188^2 face crop to 112^2)."""
+    if tuple(x.shape[-2:]) == tuple(size):
+        return x
+    return F.adaptive_avg_pool2d(x, tuple(size))
+
+
 def upsample_nearest(x: torch.Tensor, out: int) -> torch.Tensor:
     """Nearest upsample by an integer factor to (out, out) (`e3dge.py:72-76`)."""
     f = out // x.shape[-1]

@@ -19,6 +19,12 @@ Each takes the plain version (`siren_field_reference` /
 `siren_field_tex_reference`) only for tensors on the CPU. For CUDA tensors it
 launches the kernel or raises; there is no fallback.
 
+Neither entry has a backward, as the JAX kernel has none (the JAX renderer
+takes it only when not training and differentiates its XLA network). So on any
+device each entry refuses, before it runs, an operand that requires grad while
+grad mode is on: a caller that needs gradients evaluates the eager twin
+(`models/siren.py`), which is the renderer's rule (`VolumeFeatureRenderer._field`).
+
 Precision follows the field dtype: "highest" (f32 operands, f32 FMA, `sin`; io
 tensors f32) for `field_dtype="float32"`, "serving" (bf16-rounded matmul
 operands, f32 accumulation, `fast_sin`; raw_h/alpha/lbeta/feat in bf16) for
@@ -343,6 +349,21 @@ def _check_pack(pack: dict, depth: int, width: int, precision: str, device, tex:
         _check("wst", pack["wst"], (depth - 1, width, width), dt, device)
 
 
+def _refuse_grad(entry: str, tensors, pack: dict) -> None:
+    """Raise if grad mode is on and an operand (a pack tensor included)
+    requires grad: the kernel has no backward, so its outputs would be cut off
+    from the graph without a word."""
+    if not torch.is_grad_enabled():
+        return
+    named = [*tensors, *pack.items()]
+    hit = [name for name, t in named if isinstance(t, torch.Tensor) and t.requires_grad]
+    if hit:
+        raise RuntimeError(
+            f"{entry} has no backward (the JAX kernel has none), but {', '.join(hit)} require grad: "
+            "run it under torch.no_grad() or evaluate the differentiable twin (models/siren.py)"
+        )
+
+
 def _cuda_device(t: torch.Tensor) -> torch.device:
     if t.device.type != "cuda":
         raise ValueError(f"the field kernel takes CPU or CUDA tensors, got {t.device}")
@@ -363,7 +384,10 @@ def siren_field_full(
 ):
     """The whole field for pts/dirs [B, N, 3] f32 with FiLM vectors gamma/beta
     [B, D+1, W] f32 and optional SFT alpha/lbeta [B, N, W] (io dtype).
-    Returns (feat [B, N, W] io dtype, rgb_sdf [B, N, 4] f32, raw_h or None)."""
+    Returns (feat [B, N, W] io dtype, rgb_sdf [B, N, 4] f32, raw_h or None).
+    Raises on an operand that requires grad under grad mode (no backward)."""
+    _refuse_grad("siren_field_full", (("pts", pts), ("dirs", dirs), ("gamma", gamma), ("beta", beta),
+                                      ("alpha", alpha), ("lbeta", lbeta)), pack)
     if pts.device.type == "cpu":
         return siren_field_reference(
             pts, dirs, pack, gamma, beta, alpha, lbeta, precision=precision, return_raw_h=return_raw_h
@@ -424,7 +448,10 @@ def siren_field_tex(
 ):
     """SFT + view layer + rgb head on a cached backbone hidden raw_h [B, N, W]
     (io dtype), with the view layer's FiLM vectors gamma_v/beta_v [B, W] f32.
-    Returns (feat [B, N, W] io dtype, rgb [B, N, 3] f32)."""
+    Returns (feat [B, N, W] io dtype, rgb [B, N, 3] f32). Raises on an operand
+    that requires grad under grad mode (no backward)."""
+    _refuse_grad("siren_field_tex", (("raw_h", raw_h), ("dirs", dirs), ("gamma_v", gamma_v),
+                                     ("beta_v", beta_v), ("alpha", alpha), ("lbeta", lbeta)), pack)
     if raw_h.device.type == "cpu":
         return siren_field_tex_reference(
             raw_h, dirs, pack, gamma_v, beta_v, alpha, lbeta, precision=precision

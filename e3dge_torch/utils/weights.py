@@ -7,6 +7,10 @@ inversion path, inverted: each flax leaf goes to its reference torch key, with
 HWIO conv kernels -> OIHW and flax Dense kernels [in, out] -> [out, in]. The
 result loads into the port's modules with `load_state_dict(strict=True)`, and
 `torch_ckpt.ingest_variables` of it gives back the JAX leaves exactly.
+`batch_stats_to_jax` carries the BatchNorm running statistics back into a JAX
+`batch_stats` layout, and `perceptual_state_dict_from_jax` carries the JAX
+package's perceptual nets (LPIPS, the ArcFace of IDLoss) across by the rules of
+`torch_ckpt.lpips_path_to_torch` / `arcface_path_to_torch`, inverted.
 """
 
 from __future__ import annotations
@@ -270,6 +274,77 @@ def state_dicts_from_jax(variables: dict) -> dict[str, dict[str, torch.Tensor]]:
             if m:
                 sd[f"{m.group(1)}.downsample.0.{m.group(2)}"] = sd[key]
     return sds
+
+
+def batch_stats_to_jax(model: nn.Module, template: dict) -> dict:
+    """The BatchNorm running statistics of an `E3DGE` port model as numpy
+    leaves in the layout of a JAX `batch_stats` tree (`template`, e.g.
+    variables["batch_stats"] or a part of it under its top modules)."""
+    sds = {top: getattr(model, top).state_dict() for top in TOPS if hasattr(model, top)}
+
+    def walk(tree, prefix):
+        out = {}
+        for k, v in tree.items():
+            path = f"{prefix}/{k}"
+            if isinstance(v, dict):
+                out[k] = walk(v, path)
+                continue
+            top, (key, transform) = jax_path_to_torch(path)
+            if transform is not _id:
+                raise KeyError(f"{path} is not a running statistic")
+            out[k] = sds[top][key].detach().float().cpu().numpy()
+        return out
+
+    return walk(template, "batch_stats")
+
+
+_LPIPS_TV = {0: (1, 0), 1: (2, 3), 2: (3, 6), 3: (4, 8), 4: (5, 10)}  # conv i -> (slice, torchvision index)
+
+
+def _lpips_rule(rel: str) -> Rule | None:
+    m = re.match(r"net/conv(\d)/conv/(kernel|bias)", rel)
+    if m:
+        s, idx = _LPIPS_TV[int(m.group(1))]
+        kernel = m.group(2) == "kernel"
+        return (f"net.slice{s}.{idx}.{'weight' if kernel else 'bias'}", _hwio_to_oihw if kernel else _id)
+    m = re.match(r"lin(\d)_weight", rel)
+    return (f"lin{m.group(1)}.model.1.weight", _id) if m else None
+
+
+def _arcface_rule(rel: str) -> Rule | None:
+    table = {
+        "output_weight": ("output_layer.3.weight", _id),
+        "output_bias": ("output_layer.3.bias", _id),
+        "output_bn1d/scale": ("output_layer.4.weight", _id),
+        "output_bn1d/bias": ("output_layer.4.bias", _id),
+        "output_bn1d/mean": ("output_layer.4.running_mean", _id),
+        "output_bn1d/var": ("output_layer.4.running_var", _id),
+    }
+    if rel in table:
+        return table[rel]
+    if rel.startswith("output_bn/"):
+        return _bn("output_layer.0").get(rel.split("/", 1)[1])
+    return _encoder_rule(rel)  # input_layer.* and body.* as in E0
+
+
+def perceptual_state_dict_from_jax(variables: dict, kind: str) -> dict[str, torch.Tensor]:
+    """The JAX package's LPIPS variables (kind "lpips") or IDLoss variables
+    (kind "arcface": the ArcFace under `facenet`) -> the state dict of the
+    port's `LPIPS` / `ArcFaceBackbone`, the reference torch keys. Raises on a
+    leaf it cannot map."""
+    rule_fn = {"lpips": _lpips_rule, "arcface": _arcface_rule}[kind]
+    sd = {}
+    for path, value in _flatten(variables).items():
+        parts = path.split("/")
+        rel = "/".join(parts[2 if kind == "arcface" else 1:])  # past the collection (and facenet)
+        rule = rule_fn(rel)
+        if rule is None:
+            raise KeyError(f"{kind}: no torch key for {path}")
+        key, transform = rule
+        sd[key] = torch.from_numpy(np.array(transform(np.asarray(value, np.float32)), dtype=np.float32))
+    for key in [k for k in sd if k.endswith(".running_mean")]:
+        sd[key[: -len("running_mean")] + "num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+    return sd
 
 
 def load_jax_variables(model: nn.Module, variables: dict) -> None:

@@ -77,7 +77,48 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(card):
     with pytest.raises(ValueError):  # non-contiguous
         sf.siren_field_full(pts, dirs, pack, gamma, beta, alpha.transpose(0, 1).contiguous().transpose(0, 1),
                             lbeta, precision="highest")
-    with pytest.raises(ValueError):  # another width than the kernel's
+    with pytest.raises(ValueError), torch.no_grad():  # another width than the kernel's
         narrow = SirenGenerator(2, 64, 16).to(card)
         g, b = narrow.film_vectors(torch.zeros(2, 3, 16, device=card))
         sf.siren_field_full(pts, dirs, narrow.pack("highest"), g, b, precision="highest")
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_grad_operands_on_the_card(card):
+    """No backward: a CUDA operand that requires grad under grad mode raises
+    before the launch, as on the CPU."""
+    pts, dirs, pack, gamma, beta, _, _ = _inputs(card, "highest")
+    sf.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="no backward"):
+        sf.siren_field_full(pts.requires_grad_(), dirs, pack, gamma, beta, precision="highest")
+    assert sf.launch_counts == {"siren_field_full": 0, "siren_field_tex": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field_dtype", ["float32", "bfloat16"])
+def test_grad_render_takes_the_twin_on_the_card(card, field_dtype):
+    """A render whose styles require grad runs the eager twin (no launch) and
+    agrees with the kernel's no-grad render: f32 within the field tolerance
+    3e-3, bf16 (the twin rounds every layer to bf16, the kernel only its
+    operands) in mean."""
+    from e3dge_torch.config import RendererConfig
+    from e3dge_torch.models.volume_renderer import VolumeFeatureRenderer
+    from e3dge_torch.render.camera import camera_params_from_angles
+
+    torch.manual_seed(0)
+    ren = VolumeFeatureRenderer(RendererConfig(out_im_res=16, n_samples=8, field_dtype=field_dtype)).to(card)
+    ren.requires_grad_(False)
+    cam = camera_params_from_angles(torch.tensor([0.1, -0.2], device=card), torch.tensor([0.05, 0.0], device=card),
+                                    16)
+    styles = 0.3 * torch.randn(2, 9, 256, device=card)
+    sf.reset_launch_counts()
+    with torch.no_grad():
+        want = ren(cam, styles)
+    assert sf.launch_counts["siren_field_full"] == 1
+    s = styles.clone().requires_grad_()
+    got = ren(cam, s)
+    assert sf.launch_counts["siren_field_full"] == 1
+    (g,) = torch.autograd.grad(got["gen_thumb_imgs"].sum(), s)
+    assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
+    err = (got["gen_thumb_imgs"].detach() - want["gen_thumb_imgs"]).abs()
+    assert float(err.max() if field_dtype == "float32" else err.mean()) < 3e-3

@@ -152,7 +152,8 @@ def _imports(path: Path) -> set[str]:
 def test_port_and_chip_smoke_import_no_jax():
     files = sorted((REPO / "e3dge_torch").rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "field_variants.py"]
     assert len(files) > 25
-    for name in ("runner.py", "utils/mesh.py", "utils/editing.py", "utils/checkpoint.py"):
+    for name in ("runner.py", "utils/mesh.py", "utils/editing.py", "utils/checkpoint.py", "training/losses.py",
+                 "training/perceptual.py", "training/steps.py", "training/train_utils.py", "training/train.py"):
         assert REPO / "e3dge_torch" / name in files
     banned = ("jax", "flax", "e3dge_tpu", "__graft_entry__")
     for path in files:
