@@ -54,9 +54,26 @@ Phases, each failing loudly (any failure exits non-zero before the last line):
      decoder to 128^2, B=2) from one batch on the card and on the CPU (8
      threads; again at 1 thread for the reference's own spread): the loss
      terms, E0's gradient as a whole and each leaf within their tolerances,
-     and a control step with the eikonal double backward cut outside them.
+     and a control step with the eikonal double backward cut outside them;
+  8. stage-2.2 training at `stage2_config`'s full width (64^2 x 24 field
+     samples, SIREN 8 x 256, IR-SE-50 at 256^2, 4-stack hourglass, decoder to
+     1024^2, f32), B=4, seeded weights, perceptual nets and full-res D (at
+     256^2), the stage2.2.sh lambdas and switches: the `highest` kernel at the
+     iteration's new launch shapes (B=4 x 98,304 with and without raw_h, the
+     texture pass with SFT) against its plain version and timed; 2 warm-up + 4
+     measured iterations of (D producer, D step with lazy R1, E step), each
+     half's field launches asserted (D 4 + 1, E 5 + 0), every term finite,
+     local and the fusion block moved, the aligner (--fix-ada), E0, the
+     generator, the volume D and the perceptual nets bit-identical, E0's and
+     the aligner's BN statistics moved, the EMA between old and new, the D
+     moved and R1 at its step 0 only; ms per iteration in six parts, a warm D
+     step with R1 (timed, then profiled), peak memory, device busy, the
+     field kernel's share, the top device kernels; then one cycle loss of a
+     reduced config (as phase 7's)
+     with every branch on, card vs CPU within phase 7's limits, and a control
+     with the SFT modulations detached outside them.
 Prints a `kernels` JSON line (with each entry's launches per path, and the
-`highest` entry the stage-1 path launches), the nvidia-smi line, and as the
+`highest` entries the training paths launch), the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}.
 """
 
@@ -330,38 +347,79 @@ def path_cases(n_views: int = 4) -> tuple:
             ("occlusion chunk", 1, -(-n_query // n_chunks) * c.n_samples, False))
 
 
+def _hold(label: str, rows, precision: str) -> float:
+    """Each (name, kernel output, plain output, kind) within KERNEL_TOLERANCE;
+    returns the max abs error."""
+    from e3dge_torch.ops import siren_field as sf
+
+    err = 0.0
+    for name, got, want, kind in rows:
+        mx, mean, ok = sf.kernel_errors(got, want, kind, precision)
+        tol_max, tol_mean = sf.KERNEL_TOLERANCE[precision][kind]
+        log(f"  {label}: {precision} {name:13s} max {mx:.3e} mean {mean:.3e}"
+            f"  [max<={tol_max:g} mean<={tol_mean:g}] {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"field kernel disagrees with its plain version: {label} {name}")
+        err = max(err, mx)
+    return err
+
+
 def check_and_time_full(label: str, batch: int, n: int, sft: bool, precision: str, device,
-                        sdf_only: bool = False) -> dict:
-    """`siren_field_full` (no raw_h) on seeded operands of `batch` items of n
-    points against its plain version, each output within KERNEL_TOLERANCE,
-    then timed beside the plain version and the bound. `sdf_only`: zero view
-    dirs, as the renderer gives an SDF query (`field_args` with dirs None).
-    Returns the max abs error, both times and the bound."""
+                        sdf_only: bool = False, raw_h: bool = False) -> dict:
+    """`siren_field_full` (with raw_h out if asked) on seeded operands of
+    `batch` items of n points against its plain version, each output within
+    KERNEL_TOLERANCE, then timed beside the plain version and the bound.
+    `sdf_only`: zero view dirs, as the renderer gives an SDF query
+    (`field_args` with dirs None). Returns the max abs error, both times and
+    the bound."""
     from e3dge_torch.ops import siren_field as sf
 
     x = field_inputs(n, precision, sft, device, batch=batch)
     dirs = torch.zeros_like(x["dirs"]) if sdf_only else x["dirs"]
     args = (x["pts"], dirs, x["pack"], x["gamma"], x["beta"], x["alpha"], x["lbeta"])
     with torch.no_grad():
-        feat, rgb_sdf, _ = sf.siren_field_full(*args, precision=precision)
-        pfeat, prgb_sdf, _ = sf.siren_field_reference(*args, precision=precision)
+        got = sf.siren_field_full(*args, precision=precision, return_raw_h=raw_h)
+        want = sf.siren_field_reference(*args, precision=precision, return_raw_h=raw_h)
         torch.cuda.synchronize()
-        err = 0.0
-        for name, got, want, kind in (("feat", feat, pfeat, "hidden"), ("rgb_sdf", rgb_sdf, prgb_sdf, "head")):
-            mx, mean, ok = sf.kernel_errors(got, want, kind, precision)
-            tol_max, tol_mean = sf.KERNEL_TOLERANCE[precision][kind]
-            log(f"  {label}: B={batch} N={n} sft={int(sft)} {precision} full.{name:8s} max {mx:.3e} mean {mean:.3e}"
-                f"  [max<={tol_max:g} mean<={tol_mean:g}] {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"field kernel disagrees with its plain version: {label} {name}")
-            err = max(err, mx)
-        del feat, rgb_sdf, pfeat, prgb_sdf
-        ms = cuda_ms(lambda: sf.siren_field_full(*args, precision=precision))
-        plain_ms = cuda_ms(lambda: sf.siren_field_reference(*args, precision=precision), iters=3)
-    bd = field_bounds(n, precision, batch=batch, sft=sft, raw_h=False)["siren_field_full"]
+        rows = [("full.feat", got[0], want[0], "hidden"), ("full.rgb_sdf", got[1], want[1], "head")]
+        if raw_h:
+            rows.append(("full.raw_h", got[2], want[2], "hidden"))
+        err = _hold(f"{label}: B={batch} N={n} sft={int(sft)}", rows, precision)
+        del got, want, rows
+        ms = cuda_ms(lambda: sf.siren_field_full(*args, precision=precision, return_raw_h=raw_h))
+        plain_ms = cuda_ms(lambda: sf.siren_field_reference(*args, precision=precision, return_raw_h=raw_h), iters=3)
+    bd = field_bounds(n, precision, batch=batch, sft=sft, raw_h=raw_h)["siren_field_full"]
     log(f"  {label}: siren_field_full {precision} B={batch} N={n}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}), epilogue f32-pipe floor {bd['epilogue_floor_ms']:.4f} ms")
     del x, dirs, args
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"]}
+
+
+def check_and_time_tex(label: str, batch: int, n: int, precision: str, device) -> dict:
+    """`siren_field_tex` with SFT on a plain-version raw_h of `batch` items of
+    n points against its plain version, within KERNEL_TOLERANCE, timed beside
+    the plain version and the bound."""
+    from e3dge_torch.ops import siren_field as sf
+
+    x = field_inputs(n, precision, True, device, batch=batch)
+    with torch.no_grad():
+        raw_h = sf.siren_field_reference(x["pts"], x["dirs"], x["pack"], x["gamma"], x["beta"], precision=precision,
+                                         return_raw_h=True)[2]
+        args = (raw_h, x["dirs"], x["pack"], x["gamma"][:, -1].contiguous(), x["beta"][:, -1].contiguous(),
+                x["alpha"], x["lbeta"])
+        got, want = sf.siren_field_tex(*args, precision=precision), sf.siren_field_tex_reference(*args,
+                                                                                                 precision=precision)
+        torch.cuda.synchronize()
+        err = _hold(f"{label}: B={batch} N={n} sft=1", [("tex.feat", got[0], want[0], "hidden"),
+                                                         ("tex.rgb", got[1], want[1], "head")], precision)
+        del got, want
+        ms = cuda_ms(lambda: sf.siren_field_tex(*args, precision=precision))
+        plain_ms = cuda_ms(lambda: sf.siren_field_tex_reference(*args, precision=precision), iters=3)
+    bd = field_bounds(n, precision, batch=batch)["siren_field_tex"]
+    log(f"  {label}: siren_field_tex {precision} B={batch} N={n}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+    del x, raw_h, args
     torch.cuda.empty_cache()
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"]}
 
@@ -591,8 +649,10 @@ def run_card_vs_cpu(device, bf16_img: torch.Tensor):
 
 # phase 6c's novel camera: azimuth in radians, at the reference's elevation
 NOVEL_AZIM = 0.25
-# the paths whose launch counts the kernels line carries, in order
-PATHS = ("image2image", "render_multiview", "occlusion_exact", "image2image_global", "latent2surface", "stage1_step")
+# the paths whose launch counts the kernels line carries under the serving
+# entries, in order; latent2surface's SDF grid and the training paths launch
+# the `highest` entries (their own lines)
+PATHS = ("image2image", "render_multiview", "occlusion_exact", "image2image_global")
 
 
 def run_paths(device, flagship, f32_card, f32_img: torch.Tensor, bf16_img: torch.Tensor) -> dict:
@@ -917,11 +977,20 @@ def run_stage1(device) -> dict:
     return {"launches": launches, "per_step": counts[-1], "kernel": kernel}
 
 
+# a leaf whose reference gradient is below this share of the whole gradient's
+# norm is zero but for rounding (a BatchNorm shift that feeds only other
+# train-mode BatchNorms, as in the ADA aligner): its error is taken against
+# that floor, not against its own noise
+LEAF_FLOOR = 1e-6
+
+
 def grad_gap(got: dict, want: dict) -> tuple[float, str, float]:
-    """(relative L2 of all leaves together, the worst leaf, its relative L2)."""
+    """(relative L2 of all leaves together, the worst leaf, its relative L2,
+    each leaf's against max(its norm, LEAF_FLOOR x the whole norm))."""
     num = sum(float((got[k] - want[k]).double().square().sum()) for k in want)
     den = sum(float(want[k].double().square().sum()) for k in want)
-    leaf = {k: float((got[k] - want[k]).norm()) / max(float(want[k].norm()), 1e-30) for k in want}
+    floor = LEAF_FLOOR * math.sqrt(den)
+    leaf = {k: float((got[k] - want[k]).norm()) / max(float(want[k].norm()), floor, 1e-30) for k in want}
     worst = max(leaf, key=leaf.get)
     return math.sqrt(num / den), worst, leaf[worst]
 
@@ -997,6 +1066,319 @@ def st1_card_vs_cpu(device) -> None:
         raise AssertionError("the gradient gate does not see the eikonal double backward")
 
 
+# Phase 8: stage-2.2 training at stage2_config's full width (the stage2.2.sh
+# recipe: l2 1, lpips 1, id 0.1, res 1, adv 0.01, the D's lambda 0.01, r1 60
+# every 16 D steps, --fix-ada, --ema, --pose-curriculum; Adam at 5e-5)
+ST2_BATCH, ST2_WARMUP, ST2_ITERS, ST2_LR = 4, 2, 4, 5e-5
+ST2_LAMBDAS = dict(l2_lambda=1.0, lpips_lambda=1.0, id_lambda=0.1, res_lambda=1.0, adv_lambda=0.01)
+ST2_D_LAMBDAS, ST2_D_REG_EVERY = dict(discriminator_lambda=0.01, r1=60.0), 16
+ST2_TERMS = ("loss_l2", "loss_lpips", "loss_id", "loss_e_adv", "thumb_rec", "res_loss")
+# field kernel launches per iteration, all `highest` and no_grad: the E step
+# samples (render + 2 SDF targets), renders the ref view and the query view
+# (raw_h kept; the conditioned re-render is the twin's texture head on it);
+# the full-res D's fake producer samples (3) and runs image2image (its render
+# and its texture pass)
+ST2_E_LAUNCHES = {"siren_field_full": 5, "siren_field_tex": 0}
+ST2_D_LAUNCHES = {"siren_field_full": 4, "siren_field_tex": 1}
+# the E-step parts timed by CUDA events, in order
+ST2_PARTS = ("D producer", "D step", "sampling", "forward+loss", "backward", "optimizer+EMA")
+
+
+def st2_kernel_cases() -> tuple:
+    """The stage-2 iteration's launch shapes new to the `highest` kernel,
+    from stage2_config: (label, entry, B, N, raw_h). The sample, ref and
+    fake-producer renders (B x out_im_res^2 x n_samples points, no raw_h),
+    the query and image2image renders (raw_h out), and image2image's texture
+    pass (SFT in). The SDF targets' shapes are stage 1's."""
+    from e3dge_torch.config import stage2_config
+
+    c = stage2_config().renderer
+    n = c.out_im_res ** 2 * c.n_samples
+    return (("stage-2 sample / ref render", "siren_field_full", ST2_BATCH, n, False),
+            ("stage-2 query render, raw_h out", "siren_field_full", ST2_BATCH, n, True),
+            ("stage-2 D producer texture pass", "siren_field_tex", ST2_BATCH, n, False))
+
+
+def st2_kernel_check(device) -> dict:
+    """`highest` at each of `st2_kernel_cases()` against its plain version,
+    timed; {label: figures}."""
+    out = {}
+    for label, entry, batch, n, raw_h in st2_kernel_cases():
+        if entry == "siren_field_tex":
+            r = check_and_time_tex(label, batch, n, "highest", device)
+        else:
+            r = check_and_time_full(label, batch, n, False, "highest", device, raw_h=raw_h)
+        out[label] = {"entry": entry, "batch": batch, "n": n, "raw_h": raw_h, **r}
+    return out
+
+
+def st2_model(cfg, device, trainable, d_res: int):
+    """(model, mean latents, lpips_fn, id_fn, train state with EMA, the
+    full-res D): seeded weights, phase 4's seeded mean latents, seeded
+    perceptual nets, Adam at ST2_LR; the D seeded from SEED + 3, frozen
+    outside its step."""
+    from e3dge_torch.models.discriminator import Discriminator
+    from e3dge_torch.models.e3dge import E3DGE
+    from e3dge_torch.training import steps
+    from e3dge_torch.training.perceptual import make_perceptual_fns
+    from e3dge_torch.utils.weights import init_weights
+
+    model = E3DGE(cfg, device=device)
+    init_weights(model, SEED)
+    ml = to_device(*seeded_inputs(cfg, SEED), [], device)[1]
+    lpips_fn, id_fn = make_perceptual_fns(device, seed=SEED)
+    state = steps.create_train_state(model, trainable, ST2_LR, "adam", ema=True)
+    d = Discriminator(d_res).to(device)
+    init_weights(d, SEED + 3)
+    return model, ml, lpips_fn, id_fn, state, d.requires_grad_(False)
+
+
+def run_stage2(device) -> dict:
+    """Phase 8: stage-2.2 training at stage2_config (64^2 x 24 field samples,
+    SIREN 8 x 256, IR-SE-50 at 256^2, 4-stack hourglass, decoder to 1024^2,
+    f32), B=4, the full-res D at 256^2: ST2_WARMUP + ST2_ITERS iterations of
+    (D producer, D step, E step), each part timed by CUDA events and each
+    half's field launches counted; the checks (finite terms, what moves and
+    what stays, the EMA, an R1 step), a warm D step with R1 timed, and a
+    profile of two iterations. Returns the launch counts and the kernel
+    check."""
+    from e3dge_torch.config import stage2_config
+    from e3dge_torch.ops import siren_field as sf
+    from e3dge_torch.training import steps
+
+    kernel = st2_kernel_check(device)
+    cfg = stage2_config()
+    d_res = min(cfg.decoder.size, 256)
+    t0 = time.perf_counter()
+    model, ml, lpips_fn, id_fn, state, d = st2_model(cfg, device, steps.stage22_trainable(fix_ada=True), d_res)
+    d_state = steps.create_d_state(d, ST2_LR * ST2_D_REG_EVERY / (ST2_D_REG_EVERY + 1))
+    d_step = steps.make_full_d_step(ST2_D_LAMBDAS, d_state, ST2_D_REG_EVERY)
+    schedule = steps.pose_curriculum()
+    gen = torch.Generator(device).manual_seed(SEED)
+    torch.cuda.synchronize()
+    log(f"  model, mean latents, perceptual nets, D built: {time.perf_counter() - t0:.1f} s")
+    sd0 = {k: v.clone() for k, v in model.state_dict().items()}
+    frozen_nets = {f"lpips.{k}": v.clone() for k, v in lpips_fn.state_dict().items()}
+    frozen_nets.update({f"id.{k}": v.clone() for k, v in id_fn.state_dict().items()})
+    d0 = {k: v.clone() for k, v in d.state_dict().items()}
+
+    def one_iter():
+        """(CUDA events, E metrics, D metrics, D-half launches, E-half launches)."""
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(ST2_PARTS) + 1)]
+        sf.reset_launch_counts()
+        ev[0].record()
+        fakes, reals = steps.full_d_batch(model, ml, ST2_BATCH, d_res, gen)
+        ev[1].record()
+        d_metrics = d_step(reals, fakes)
+        ev[2].record()
+        d_counts = dict(sf.launch_counts)
+        noise = steps.decoder_noise(model, ST2_BATCH, gen)
+        batch = model.synthetic_sample(ST2_BATCH, schedule(state.step), pair_same_id=True, generator=gen,
+                                       noise=noise)
+        ev[3].record()
+        loss, metrics, _ = steps.cycle_loss(model, batch, ml, ST2_LAMBDAS, lpips_fn, id_fn, d_fn=d, noise=noise)
+        ev[4].record()
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        ev[5].record()
+        steps.optimizer_step(state)
+        ev[6].record()
+        torch.cuda.synchronize()
+        e_counts = {k: v - d_counts[k] for k, v in sf.launch_counts.items()}
+        return ev, metrics, d_metrics, d_counts, e_counts
+
+    torch.cuda.reset_peak_memory_stats()
+    parts, r1 = [], []
+    for i in range(ST2_WARMUP + ST2_ITERS):
+        before = {k: p.detach().clone() for k, p in state.params.items()} if i == 0 else None
+        ev, metrics, d_metrics, d_counts, e_counts = one_iter()
+        if (d_counts, e_counts) != (ST2_D_LAUNCHES, ST2_E_LAUNCHES):
+            raise AssertionError(f"stage-2 iteration {i} launched {d_counts} + {e_counts}, expected "
+                                 f"{ST2_D_LAUNCHES} + {ST2_E_LAUNCHES}")
+        if i == 0:  # the EMA after one step: decay x old + (1 - decay) x new, so between them
+            worst = 0.0
+            for k, p in state.params.items():
+                lo, hi = torch.minimum(before[k], p.detach()), torch.maximum(before[k], p.detach())
+                e = state.ema[k]
+                out = torch.maximum(torch.clamp(lo - e, min=0), torch.clamp(e - hi, min=0)) / (1 + e.abs())
+                worst = max(worst, float(out.max()))
+            log(f"  EMA after step 0: furthest outside [old, new] {worst:.3e} relative (f32 rounding at most)")
+            if worst > 1e-6:
+                raise AssertionError("the EMA does not lie between the old and the new parameters")
+            del before
+        vals = {k: float(metrics[k].detach()) for k in ("loss",) + ST2_TERMS if k in metrics}
+        vals.update({f"d_{k}": float(v) for k, v in d_metrics.items()})
+        bad = [k for k in ("loss",) + ST2_TERMS + ("d_d", "d_r1") if k not in vals or not math.isfinite(vals[k])]
+        if bad:
+            raise AssertionError(f"stage-2 iteration {i}: missing or non-finite terms {bad}")
+        r1.append(vals["d_r1"])
+        if i >= ST2_WARMUP:
+            parts.append([ev[j].elapsed_time(ev[j + 1]) for j in range(len(ST2_PARTS))])
+        log(f"  iteration {i}{' (warm-up)' if i < ST2_WARMUP else ''}: "
+            + ", ".join(f"{k} {v:.5g}" for k, v in vals.items()))
+    peak = peak_gib()
+    if not (r1[0] > 0 and all(v == 0 for v in r1[1:])):
+        raise AssertionError(f"lazy R1 not at D step 0 only: {r1}")
+    parts = np.asarray(parts)
+    total = parts.sum(axis=1)
+    log(f"  ms per stage-2 iteration (B={ST2_BATCH}, CUDA events over {ST2_ITERS} iterations): median "
+        f"{np.median(total):.2f}, min {total.min():.2f}, max {total.max():.2f}; median "
+        + ", ".join(f"{name} {np.median(parts[:, j]):.2f}" for j, name in enumerate(ST2_PARTS))
+        + f"; peak memory {peak:.2f} GiB")
+    # a warm D step with the lazy R1 (it fires at every ST2_D_REG_EVERY-th D step)
+    fakes, reals = steps.full_d_batch(model, ml, ST2_BATCH, d_res, gen)
+    d_state.step = ST2_D_REG_EVERY * (d_state.step // ST2_D_REG_EVERY + 1)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    dm = d_step(reals, fakes)
+    ev[1].record()
+    torch.cuda.synchronize()
+    log(f"  D step with R1 (warm, step {d_state.step - 1}): {ev[0].elapsed_time(ev[1]):.2f} ms, "
+        f"r1 {float(dm['r1']):.4g}; without R1: median {np.median(parts[:, 1]):.2f} ms")
+    d_state.step = ST2_D_REG_EVERY * (d_state.step // ST2_D_REG_EVERY + 1)
+    kernel_us, n_launch = device_kernels(lambda: d_step(reals, fakes), 1)
+    log(f"  that D step with R1 again, profiled: device busy {sum(kernel_us.values()) / 1e3:.3f} ms in "
+        f"{sum(n_launch.values())} launches")
+    for name, us in sorted(kernel_us.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"  kernel {us / 1e3:8.4f} ms {n_launch[name]:5d}x  {name[:100]}")
+    del fakes, reals
+
+    sd = model.state_dict()
+    tops = ("local", "fuse_sft_block", "grid_align", "encoder")
+    moved = {top: sum(not torch.equal(p, sd0[f"{top}.{k}"]) for k, p in getattr(model, top).named_parameters())
+             for top in tops}
+    n_p = {top: sum(1 for _ in getattr(model, top).parameters()) for top in tops}
+    bn_moved = {top: sum(not torch.equal(sd[k], sd0[k]) for k in sd if k.startswith(f"{top}.") and "running_" in k)
+                for top in ("encoder", "grid_align")}
+    log(f"  parameters moved: {moved} of {n_p}; BN running statistics moved: {bn_moved}")
+    if moved["local"] < n_p["local"] // 2 or moved["fuse_sft_block"] < n_p["fuse_sft_block"] // 2:
+        raise AssertionError("local or fuse_sft_block did not move")
+    if moved["grid_align"] or moved["encoder"]:
+        raise AssertionError("the frozen aligner (--fix-ada) or E0 moved")
+    if not bn_moved["encoder"] or not bn_moved["grid_align"]:
+        raise AssertionError("E0's and the aligner's BN running statistics did not move (train mode)")
+    frozen = [k for k in sd if k.split(".")[0] in ("generator", "volume_discriminator")]
+    changed = [k for k in frozen if not torch.equal(sd[k], sd0[k])]
+    nets = {f"lpips.{k}": v for k, v in lpips_fn.state_dict().items()}
+    nets.update({f"id.{k}": v for k, v in id_fn.state_dict().items()})
+    changed += [k for k in frozen_nets if not torch.equal(frozen_nets[k], nets[k])]
+    log(f"  generator, volume D and perceptual nets: {len(frozen) + len(frozen_nets) - len(changed)} of "
+        f"{len(frozen) + len(frozen_nets)} tensors bit-identical")
+    if changed:
+        raise AssertionError(f"frozen tensors changed: {changed[:5]}")
+    trained = ("local", "fuse_sft_block")
+    if any(p.grad is not None for n, p in model.named_parameters() if n.split(".")[0] not in trained):
+        raise AssertionError("a frozen parameter received a gradient")
+    d_moved = sum(not torch.equal(v, d0[k]) for k, v in d.state_dict().items())
+    log(f"  full-res D: {d_moved} of {len(d0)} tensors moved")
+    if d_moved < len(d0) // 2 or any(p.grad is not None for p in d.parameters()):
+        raise AssertionError("the D did not move, or kept gradients")
+
+    wall_ms = float(np.median(total))
+    kernel_us, n_launch = device_kernels(lambda: one_iter(), 2)
+    busy = sum(kernel_us.values()) / 2e3
+    field = sum(us for name, us in kernel_us.items() if "siren_field" in name) / 2e3
+    log(f"  device busy {busy:.3f} ms per iteration in {sum(n_launch.values()) // 2} launches (field kernel "
+        f"{field:.3f} ms, {field / busy:.3f} of busy); busy share {busy / wall_ms:.3f} of the {wall_ms:.2f} ms median "
+        f"iteration")
+    for name, us in sorted(kernel_us.items(), key=lambda kv: -kv[1])[:15]:
+        log(f"  kernel {us / 2e3:8.4f} ms {n_launch[name] // 2:5d}x  {name[:100]}")
+    del model, state, lpips_fn, id_fn, d, d_state, sd0, frozen_nets
+    torch.cuda.empty_cache()
+    per_iter = {k: ST2_D_LAUNCHES[k] + ST2_E_LAUNCHES[k] for k in ST2_E_LAUNCHES}
+    return {"per_iter": per_iter, "launches": {k: v * ST2_ITERS for k, v in per_iter.items()}, "kernel": kernel}
+
+
+def st2_reduced_config():
+    """stage2_config cut for the card-vs-CPU check as phase 7 cuts stage 1:
+    the field at depth 8 and width 256 rendering 32^2, the decoder to 128^2,
+    E0 and the E1 branch unchanged."""
+    from e3dge_torch.config import _with, stage2_config
+
+    return _with(stage2_config(), renderer=dict(out_im_res=32), decoder=dict(size=128, in_res=32),
+                 encoder=dict(n_styles_decoder=6)).validate()
+
+
+def st2_card_vs_cpu(device) -> None:
+    """Phase 8, last part: one stage-2 cycle loss and backward of
+    `st2_reduced_config` at B=2 from one batch made on the card, with every
+    branch on (the adversarial term at the adaptive weight, the exact ref-view
+    weighting, both consistency terms, the aligner trained): the loss terms
+    and the trainable gradient on the card, on the card with the SFT
+    modulations detached before the re-render (the control), on the CPU at
+    ST1_CPU_THREADS threads (the reference) and at 1 thread, each against the
+    reference, within phase 7's limits."""
+    from unittest import mock
+
+    from e3dge_torch.render.camera import CameraParams
+    from e3dge_torch.training import steps
+
+    def to(x, dev):
+        return CameraParams(*(f.to(dev) for f in x)) if isinstance(x, CameraParams) else x.to(dev)
+
+    cfg = st2_reduced_config()
+    d_res = min(cfg.decoder.size, 256)
+    lambdas = dict(ST2_LAMBDAS, hit_prob_consistency_lambda=0.1, depth_lambda=0.1)
+    terms = ("loss",) + ST2_TERMS + ("d_weight", "hit_prob_consistency", "depth_consistency")
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    threads = torch.get_num_threads()
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    runs, data = {}, {}
+    try:
+        for name, dev, n_threads, cut in (("card", device, None, False),
+                                          ("card, SFT detached", device, None, True),
+                                          ("CPU", torch.device("cpu"), ST1_CPU_THREADS, False),
+                                          ("CPU at 1 thread", torch.device("cpu"), 1, False)):
+            t0 = time.perf_counter()
+            torch.set_num_threads(n_threads or threads)
+            model, ml, lpips_fn, id_fn, state, d = st2_model(cfg, dev, steps.STAGE22_TRAINABLE, d_res)
+            if not data:  # on the card
+                gen = torch.Generator(dev).manual_seed(SEED)
+                data["noise"] = steps.decoder_noise(model, 2, gen)
+                data["batch"] = model.synthetic_sample(2, 1.0, pair_same_id=True, generator=gen, noise=data["noise"])
+            b = {k: to(v, dev) for k, v in data["batch"].items()}
+            probe = [p for k, p in state.params.items() if k.startswith("local.")]
+            render_cached = model.generator.render_cached
+
+            def detached(styles, cached, conditions, **kw):
+                return render_cached(styles, cached, tuple(t.detach() for t in conditions), **kw)
+
+            with mock.patch.object(model.generator, "render_cached", detached) if cut else contextlib.nullcontext():
+                loss, metrics, _ = steps.cycle_loss(model, b, ml, lambdas, lpips_fn, id_fn, use_ref_view_weight=True,
+                                                    d_fn=d, adaptive_params=probe,
+                                                    noise=[n.to(dev) for n in data["noise"]])
+            loss.backward()
+            runs[name] = ({k: float(metrics[k].detach()) for k in terms},
+                          {k: (torch.zeros_like(p) if p.grad is None else p.grad).detach().float().cpu()
+                           for k, p in state.params.items()})
+            log(f"  reduced stage-2 step, {name}: {time.perf_counter() - t0:.1f} s (build + one step)")
+            del model, state, lpips_fn, id_fn, d, loss, metrics, b, probe
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.set_num_threads(threads)
+    m_ref, g_ref = runs["CPU"]
+    log("  terms card / CPU: " + ", ".join(f"{k} {runs['card'][0][k]:.6g} / {m_ref[k]:.6g}" for k in m_ref))
+    gaps = {}
+    for name in ("card", "CPU at 1 thread", "card, SFT detached"):
+        m, g = runs[name]
+        term = max(abs(m[k] - m_ref[k]) / max(abs(m_ref[k]), 1e-6) for k in m_ref)
+        gaps[name] = (term, *grad_gap(g, g_ref))
+        log(f"  {name} vs CPU at {ST1_CPU_THREADS} threads: worst term relative error {term:.3e}; trainable "
+            f"gradient relative L2 {gaps[name][1]:.3e} over {len(g_ref)} leaves, worst leaf {gaps[name][3]:.3e} at "
+            f"{gaps[name][2]}")
+    term, glob, _, leaf = gaps["card"]
+    ok = term < ST1_TOL_TERM and glob < ST1_TOL_GRAD and leaf < ST1_TOL_LEAF
+    log(f"  card vs CPU [terms < {ST1_TOL_TERM:g}, gradient < {ST1_TOL_GRAD:g}, each leaf < {ST1_TOL_LEAF:g}]: "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the stage-2 step disagrees between the card and the CPU")
+    _, glob, _, leaf = gaps["card, SFT detached"]
+    seen = glob >= ST1_TOL_GRAD or leaf >= ST1_TOL_LEAF
+    log(f"  control (SFT detached) {'fails' if seen else 'PASSES'} the gradient gate")
+    if not seen:
+        raise AssertionError("the gradient gate does not see the SFT modulations' gradient")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1043,8 +1425,11 @@ def main() -> int:
 
     log("[7] stage-1 training, stage1_config at full width")
     st1 = run_stage1(device)
-    paths["stage1_step"] = st1["per_step"]
     st1_card_vs_cpu(device)
+
+    log("[8] stage-2.2 training, stage2_config at full width")
+    st2 = run_stage2(device)
+    st2_card_vs_cpu(device)
 
     kernels = []
     for name in ("siren_field_full", "siren_field_tex"):
@@ -1064,6 +1449,7 @@ def main() -> int:
         })
     # the stage-1 path's kernel: the f32 entry of csrc/siren_field.cu at the
     # sample render's shape; launches over the measured steps (all `highest`)
+    st2_shapes = [{"label": label, **r} for label, r in st2["kernel"].items()]
     kernels.append({
         "name": "siren_field_full (highest)",
         "route": "cuda",
@@ -1071,8 +1457,26 @@ def main() -> int:
         "replaces": "e3dge_tpu/ops/pallas/siren_kernel.py:48",
         "launches": st1["launches"]["siren_field_full"],
         **st1["kernel"],
+        "shapes": st1["kernel"]["shapes"] + [r for r in st2_shapes if r["entry"] == "siren_field_full"],
         "library_ms": None,
-        "launches_by_path": {"stage1_step": st1["per_step"]["siren_field_full"]},
+        "launches_by_path": {"latent2surface": paths["latent2surface"]["siren_field_full"],
+                             "stage1_step": st1["per_step"]["siren_field_full"],
+                             "stage2_iteration": st2["per_iter"]["siren_field_full"]},
+        "launches_stage2": st2["launches"]["siren_field_full"],
+    })
+    # the texture entry in f32, on the stage-2 path (the D's fake producer):
+    # launches over the measured iterations, figures at its B=4 shape
+    tex = st2["kernel"]["stage-2 D producer texture pass"]
+    kernels.append({
+        "name": "siren_field_tex (highest)",
+        "route": "cuda",
+        "source": "e3dge_torch/csrc/siren_field.cu",
+        "replaces": "e3dge_tpu/ops/pallas/siren_kernel.py:48",
+        "launches": st2["launches"]["siren_field_tex"],
+        **{k: tex[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+        "launches_by_path": {"stage1_step": st1["per_step"]["siren_field_tex"],
+                             "stage2_iteration": st2["per_iter"]["siren_field_tex"]},
     })
     log(f"image2image ms per inversion (flagship bf16, B=1): {inv_ms:.4f}")
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,8 @@
-"""The volume-render discriminator, whose viewpoint head is the pose estimator at
-inference; counterpart of `VolumeRenderDiscriminator` in
-`e3dge_tpu/models/discriminator.py` (reference stylesdf_model.py:1193-1419).
-The full-resolution StyleGAN2 discriminator (training only) is not ported.
+"""Discriminators; counterpart of `e3dge_tpu/models/discriminator.py`
+(reference stylesdf_model.py:1193-1617): the volume-render discriminator, whose
+viewpoint head is the pose estimator at inference, and the full-resolution
+StyleGAN2 discriminator of stage-2.2 training, under the reference's
+state_dict names.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import torch
 from torch import nn
 
 from e3dge_torch.models.encoders.fpn import Conv2d
+from e3dge_torch.models.layers import ConvLayer, EqualLinear
 from e3dge_torch.ops import fused_leaky_relu
 
 VOLUME_D_CHANNELS = {2: 400, 4: 400, 8: 400, 16: 400, 32: 256, 64: 128, 128: 64}
@@ -107,3 +109,47 @@ class VolumeRenderDiscriminator(nn.Module):
         """-> (GAN logit [B, 1], (azim, elev) [B, 2])."""
         out = self.final_conv(self.convs(x))
         return out[:, 0:1].reshape(-1, 1), out[:, 1:].reshape(-1, 2)
+
+
+class DiscResBlock(nn.Module):
+    """StyleGAN2 D resblock (stylesdf_model.py:1514-1540)."""
+
+    def __init__(self, in_channel: int, out_channel: int):
+        super().__init__()
+        self.conv1 = ConvLayer(in_channel, in_channel, 3)
+        self.conv2 = ConvLayer(in_channel, out_channel, 3, downsample=True)
+        self.skip = ConvLayer(in_channel, out_channel, 1, downsample=True, bias=False, activate=False)
+
+    def forward(self, x):
+        return (self.conv2(self.conv1(x)) + self.skip(x)) / math.sqrt(2.0)
+
+
+class Discriminator(nn.Module):
+    """Full-resolution StyleGAN2 D with minibatch stddev (stylesdf_model.py:
+    1541-1617) over [B, 3, input_size, input_size] images -> [B, 1] logits; B
+    must be a multiple of min(B, stddev_group)."""
+
+    def __init__(self, input_size: int = 1024, channel_multiplier: int = 2, channel_base: int = 512,
+                 stddev_group: int = 4):
+        super().__init__()
+        cb, cm = channel_base, channel_multiplier
+        ch = {4: cb, 8: cb, 16: cb, 32: cb, 64: cb // 2 * cm, 128: cb // 4 * cm, 256: cb // 8 * cm,
+              512: cb // 16 * cm, 1024: cb // 32 * cm}
+        self.stddev_group = stddev_group
+        convs = [ConvLayer(3, ch[input_size], 1)]
+        in_ch = ch[input_size]
+        for i in range(int(math.log2(input_size)), 2, -1):
+            convs.append(DiscResBlock(in_ch, ch[2 ** (i - 1)]))
+            in_ch = ch[2 ** (i - 1)]
+        self.convs = nn.Sequential(*convs)
+        self.final_conv = ConvLayer(in_ch + 1, ch[4], 3)
+        self.final_linear = nn.Sequential(EqualLinear(ch[4] * 4 * 4, ch[4], activation=True), EqualLinear(ch[4], 1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.convs(x)
+        b, c, h, w = out.shape
+        group = min(b, self.stddev_group)
+        y = out.reshape(group, -1, 1, c, h, w)
+        stddev = torch.sqrt(y.var(dim=0, correction=0) + 1e-8).mean(dim=(2, 3, 4), keepdim=True).squeeze(2)
+        out = torch.cat([out, stddev.repeat(group, 1, h, w)], dim=1)
+        return self.final_linear(self.final_conv(out).reshape(b, -1))

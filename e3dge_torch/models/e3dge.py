@@ -13,12 +13,16 @@ the global-only path (E0 -> G0 -> G1) of a model built without the local
 branch. Every G0 field pass of serving runs the hand-written field kernel on
 the card.
 
-Training (stage 1): `image2latents`, `latent2image` and `image2image_global`
-take `train=True` — the caller's grad mode, E0 in train mode for the call —
-and their G0 renders then need a gradient, so they evaluate the eager twin;
-so does `query_sdf(train=True)`; `synthetic_sample` draws frozen-GAN training
-data under no_grad, through the kernel. With `train=False` (the default) the
-entry points serve under no_grad.
+Training: `image2latents`, `latent2image`, `image2image_global` (stage 1),
+`encode_ref_images` and `que_render_given_ref` (stage 2) take `train=True` —
+the caller's grad mode, every BatchNorm (E0's and the aligner's) in train mode
+for the call — and a G0 render that then needs a gradient evaluates the eager
+twin; so does `query_sdf(train=True)`. In stage 2 only the texture
+modulations carry a gradient: the query render launches the kernel and keeps
+its backbone, and the conditioned re-render runs the twin's texture head on
+it. `synthetic_sample` draws frozen-GAN training data under no_grad, through
+the kernel. With `train=False` (the default) the entry points serve under
+no_grad.
 """
 
 from __future__ import annotations
@@ -82,16 +86,20 @@ class E3DGE(nn.Module):
     @contextmanager
     def _mode(self, train: bool):
         """One call's mode, as flax's `train=`: serving (train False) runs under
-        no_grad with E0's BatchNorm on its running statistics; a training call
-        keeps the caller's grad mode and runs E0 in train mode for the call
-        only (batch statistics, running statistics updated)."""
-        was = self.encoder.training
-        self.encoder.train(train)
+        no_grad with every BatchNorm (E0's, the aligner's) on its running
+        statistics; a training call keeps the caller's grad mode and runs them
+        in train mode for the call only (batch statistics, running statistics
+        updated), trained or frozen alike, as JAX's steps do."""
+        mods = [m for m in (self.encoder, getattr(self, "grid_align", None)) if m is not None]
+        was = [m.training for m in mods]
+        for m in mods:
+            m.train(train)
         try:
             with torch.set_grad_enabled(train and torch.is_grad_enabled()):
                 yield
         finally:
-            self.encoder.train(was)
+            for m, w in zip(mods, was):
+                m.train(w)
 
     def mean_latent(self, n: int = 10000, generator: torch.Generator | None = None) -> LatentMeans:
         r_mean, d_mean = self.generator.mean_latent(n, generator)
@@ -150,24 +158,28 @@ class E3DGE(nn.Module):
 
     # ------------------------------------------------------------------- E1 path
 
-    @torch.no_grad()
     def encode_ref_images(
-        self, images: torch.Tensor, mean_latents: LatentMeans, camera: CameraParams | None = None
+        self, images: torch.Tensor, mean_latents: LatentMeans, camera: CameraParams | None = None,
+        train: bool = False,
     ) -> dict[str, Any]:
-        """Latents, pose, the global render (with the backbone cache `raw_h`),
-        the residual, and the reference-view hourglass feature volume."""
+        """Latents, pose, the global render (with the backbone cache `raw_h`
+        when serving: a training query view differs from the ref view), the
+        residual (a constant), and the reference-view hourglass feature
+        volume. train: see `_mode`."""
         c = self.cfg
-        input_imgs = adaptive_avg_pool(images, c.pifu.load_size)
-        encoder_out = self.image2latents(input_imgs, mean_latents)
-        pred_latents = encoder_out["pred_latents"]
-        cam = camera if camera is not None else self.image2camsettings(input_imgs)
-        render_out = self.latent2image(pred_latents, cam, renderer_only=True, return_raw_h=True)
-        thumb_256 = upsample_nearest(render_out["gen_thumb_imgs"], c.pifu.load_size)
-        res_gt = input_imgs - thumb_256
-        depth = render_out["depth"][..., 0].permute(0, 3, 1, 2)  # [B, 1, H, W]
-        depth_256 = upsample_nearest(depth, c.pifu.load_size)
-        dt = self.compute_dtype
-        ref_feat = self.local.filter(res_gt.to(dt), depth_256.to(dt))
+        with self._mode(train):
+            input_imgs = adaptive_avg_pool(images, c.pifu.load_size)
+            encoder_out = self.image2latents(input_imgs, mean_latents, train=train)
+            pred_latents = encoder_out["pred_latents"]
+            cam = camera if camera is not None else self.image2camsettings(input_imgs)
+            render_out = self.latent2image(pred_latents, cam, renderer_only=True, return_raw_h=not train,
+                                           train=train)
+            thumb_256 = upsample_nearest(render_out["gen_thumb_imgs"], c.pifu.load_size)
+            res_gt = (input_imgs - thumb_256).detach()
+            depth = render_out["depth"][..., 0].permute(0, 3, 1, 2)  # [B, 1, H, W]
+            depth_256 = upsample_nearest(depth, c.pifu.load_size)
+            dt = self.compute_dtype
+            ref_feat = self.local.filter(res_gt.to(dt), depth_256.to(dt))
         return {
             "ref_view_aligned_feat": ref_feat,
             "imgs": input_imgs,
@@ -179,7 +191,6 @@ class E3DGE(nn.Module):
             "pred_latents": pred_latents,
         }
 
-    @torch.no_grad()
     def que_render_given_ref(
         self,
         ref_info: dict[str, Any],
@@ -191,6 +202,7 @@ class E3DGE(nn.Module):
         same_view: bool = False,
         noise=None,
         generator: torch.Generator | None = None,
+        train: bool = False,
     ) -> dict[str, Any]:
         """Render the query view conditioned on the reference residual features
         (`e3dge_tpu/models/e3dge.py:220-418`): 3D-projected ref features + 2D
@@ -208,102 +220,118 @@ class E3DGE(nn.Module):
         (`renderer.occlusion_mode`: "exact" re-integrates a ray per point,
         "texture" samples the ref render's weights, falling back to exact when
         ref_info has no `global_render_out`), with the force-background
-        correction on the last sample."""
-        c = self.cfg
-        pred_latents = ref_info["pred_latents"]
-        ref_calibs = ref_info["cam_settings"].calibs
+        correction on the last sample; the weighting is data (no gradient).
 
-        # 1. the global render at the query view (points, depth, thumb)
-        if que_info is None:
-            que_info = self.latent2image(pred_latents, que_camera, renderer_only=True)
-        que_pts = que_info["points"]
-        B, H, W, S, _ = que_pts.shape
+        train (stage-2 cycle training, see `_mode`): unless the latents need
+        a gradient, the query render keeps its backbone `raw_h` and the
+        conditioned re-render runs the texture head only on it, under autograd
+        (`render_from_backbone`): the SFT modulates the texture branch alone,
+        so on que_info's own samples this equals JAX's full re-render."""
+        with self._mode(train):
+            c = self.cfg
+            pred_latents = ref_info["pred_latents"]
+            ref_calibs = ref_info["cam_settings"].calibs
 
-        # 4 (hoisted). ADA 2D alignment at the query view + the hourglass filter on it
-        dt = self.compute_dtype
-        que_thumb_256 = upsample_nearest(que_info["gen_thumb_imgs"], c.pifu.load_size)
-        aligned_res = self.grid_align(torch.cat([ref_info["orig_res_gt"], que_thumb_256], dim=1).to(dt)).float()
-        que_depth = que_info["depth"][..., 0].permute(0, 3, 1, 2)
-        que_depth_256 = upsample_nearest(que_depth, c.pifu.load_size)
-        que_feat = self.local.filter(aligned_res.to(dt), que_depth_256.to(dt))
+            # 1. the global render at the query view (points, depth, thumb);
+            # in training it keeps raw_h when only the texture modulations
+            # will need a gradient
+            tail_trains = train and not pred_latents[0].requires_grad
+            if que_info is None:
+                que_info = self.latent2image(pred_latents, que_camera, renderer_only=True, return_raw_h=tail_trains,
+                                             train=train)
+            que_pts = que_info["points"]
+            B, H, W, S, _ = que_pts.shape
 
-        # 2. 3D-projected ref features (at the REF calibs) and 4b. query features
-        # (at the QUE calibs). The que-side lookup is ray-constant: every sample
-        # of a ray projects to the ray's own pixel in the camera that cast it,
-        # so it runs on the HW sample-0 points and broadcasts over S.
-        pts_ray = que_pts[:, :, :, 0, :].reshape(B, -1, 3).permute(0, 2, 1)
-        if same_view:
-            # ref IS the query camera: both lookups share one projection
-            proj = self.local.query_pair(ref_info["ref_view_aligned_feat"], que_feat, pts_ray, ref_calibs)
-            fa = proj["feats_a"].permute(0, 2, 1).reshape(B, H, W, 1, -1)
-            fb = proj["feats_b"].permute(0, 2, 1).reshape(B, H, W, 1, -1)
-            feature_3d = fa.expand(B, H, W, S, fa.shape[-1])
-            feature_2d = fb.expand(B, H, W, S, fb.shape[-1])
-        else:
-            # the ref-side lookup is per point: que points projected into the REF view
-            pts_all = que_pts.reshape(B, -1, 3).permute(0, 2, 1)
-            proj = self.local.query(ref_info["ref_view_aligned_feat"], pts_all, ref_calibs)
-            q2 = self.local.query(que_feat, pts_ray, que_camera.calibs)
-            f2 = q2["feats"].permute(0, 2, 1).reshape(B, H, W, 1, -1)
-            feature_2d = f2.expand(B, H, W, S, f2.shape[-1])
-            feature_3d = proj["feats"].permute(0, 2, 1).reshape(B, H, W, S, -1)
+            # 4 (hoisted). ADA 2D alignment at the query view + the hourglass filter on it
+            dt = self.compute_dtype
+            que_thumb_256 = upsample_nearest(que_info["gen_thumb_imgs"], c.pifu.load_size)
+            aligned_res = self.grid_align(torch.cat([ref_info["orig_res_gt"], que_thumb_256], dim=1).to(dt)).float()
+            que_depth = que_info["depth"][..., 0].permute(0, 3, 1, 2)
+            que_depth_256 = upsample_nearest(que_depth, c.pifu.load_size)
+            que_feat = self.local.filter(aligned_res.to(dt), que_depth_256.to(dt))
 
-        ref_hit_prob = None
-        if use_ref_view_weight:
-            ref_hit_prob = self._ref_view_weight(ref_info, que_pts)
-            in_img = proj["in_img"]
-            in_img = in_img.reshape(B, H, W, 1 if in_img.shape[1] == H * W else S, 1)
-            ref_hit_prob = ref_hit_prob * in_img.to(feature_3d.dtype)
-            feature_3d = feature_3d * ref_hit_prob
+            # 2. 3D-projected ref features (at the REF calibs) and 4b. query features
+            # (at the QUE calibs). The que-side lookup is ray-constant: every sample
+            # of a ray projects to the ray's own pixel in the camera that cast it,
+            # so it runs on the HW sample-0 points and broadcasts over S.
+            pts_ray = que_pts[:, :, :, 0, :].reshape(B, -1, 3).permute(0, 2, 1)
+            if same_view:
+                # ref IS the query camera: both lookups share one projection
+                proj = self.local.query_pair(ref_info["ref_view_aligned_feat"], que_feat, pts_ray, ref_calibs)
+                fa = proj["feats_a"].permute(0, 2, 1).reshape(B, H, W, 1, -1)
+                fb = proj["feats_b"].permute(0, 2, 1).reshape(B, H, W, 1, -1)
+                feature_3d = fa.expand(B, H, W, S, fa.shape[-1])
+                feature_2d = fb.expand(B, H, W, S, fb.shape[-1])
+            else:
+                # the ref-side lookup is per point: que points projected into the REF view
+                pts_all = que_pts.reshape(B, -1, 3).permute(0, 2, 1)
+                proj = self.local.query(ref_info["ref_view_aligned_feat"], pts_all, ref_calibs)
+                q2 = self.local.query(que_feat, pts_ray, que_camera.calibs)
+                f2 = q2["feats"].permute(0, 2, 1).reshape(B, H, W, 1, -1)
+                feature_2d = f2.expand(B, H, W, S, f2.shape[-1])
+                feature_3d = proj["feats"].permute(0, 2, 1).reshape(B, H, W, S, -1)
 
-        # 3. visibility: the query surface xyz projected into the ref view. At
-        # the same view each surface point reprojects to its own pixel centre,
-        # so the mask is all ones.
-        if same_view:
-            vis_mask = torch.ones(B, H, W, S, 1, device=que_pts.device, dtype=que_pts.dtype)
-        else:
-            xyz = que_info["xyz"].reshape(B, -1, 3).permute(0, 2, 1)
-            vis_mask = points_in_image(xyz, ref_calibs).reshape(B, H, W, 1, 1).to(que_pts.dtype).expand(B, H, W, S, 1)
+            ref_hit_prob = None
+            if use_ref_view_weight:
+                ref_hit_prob = self._ref_view_weight(ref_info, que_pts)
+                in_img = proj["in_img"]
+                in_img = in_img.reshape(B, H, W, 1 if in_img.shape[1] == H * W else S, 1)
+                ref_hit_prob = ref_hit_prob * in_img.to(feature_3d.dtype)
+                feature_3d = feature_3d * ref_hit_prob
 
-        # 5. SFT fusion of (2D feats + visibility) into the 3D feats, + PE; the
-        # fusion path runs in the field dtype
-        fdt = self.field_dtype
-        feature_2d = torch.cat([feature_2d.to(fdt), vis_mask.to(fdt)], dim=-1)
-        fused = self.fuse_sft_block(feature_2d, feature_3d.to(fdt), w=fusion_weight)
-        pe = pos_encoding(que_pts, n_freqs=7).to(fdt)
-        alpha, beta = self.local.tex_modulations((fused, pe))
+            # 3. visibility: the query surface xyz projected into the ref view. At
+            # the same view each surface point reprojects to its own pixel centre,
+            # so the mask is all ones.
+            if same_view:
+                vis_mask = torch.ones(B, H, W, S, 1, device=que_pts.device, dtype=que_pts.dtype)
+            else:
+                xyz = que_info["xyz"].reshape(B, -1, 3).permute(0, 2, 1)
+                vis_mask = points_in_image(xyz, ref_calibs).reshape(B, H, W, 1, 1).to(que_pts.dtype)
+                vis_mask = vis_mask.expand(B, H, W, S, 1)
 
-        # 6. modulations + the conditioned render on the query's samples
-        if reuse_backbone and "raw_h" in que_info:
-            res_render_out = self.generator.render_cached(
-                pred_latents, que_info, (alpha, beta), noise=noise, generator=generator
-            )
-        else:
-            res_render_out = self.latent2image(
-                pred_latents, que_camera, local_conditions=(alpha, beta), z_vals=que_info["z_vals"],
-                noise=noise, generator=generator,
-            )
-        return {
-            "res_render_out": res_render_out,
-            "aligned_res": aligned_res,
-            # [B, H, W, 1, 1] for the ray-constant same-view lookup, [B, H, W, S, 1] per point
-            "in_img_mask": proj["in_img"].reshape(B, H, W, -1, 1),
-            "que_info": que_info,
-            "ref_hit_prob": ref_hit_prob,
-        }
+            # 5. SFT fusion of (2D feats + visibility) into the 3D feats, + PE; the
+            # fusion path runs in the field dtype
+            fdt = self.field_dtype
+            feature_2d = torch.cat([feature_2d.to(fdt), vis_mask.to(fdt)], dim=-1)
+            fused = self.fuse_sft_block(feature_2d, feature_3d.to(fdt), w=fusion_weight)
+            pe = pos_encoding(que_pts, n_freqs=7).to(fdt)
+            alpha, beta = self.local.tex_modulations((fused, pe))
+
+            # 6. modulations + the conditioned render on the query's samples
+            if "raw_h" in que_info and (reuse_backbone or tail_trains):
+                res_render_out = self.generator.render_cached(
+                    pred_latents, que_info, (alpha, beta), noise=noise, generator=generator
+                )
+            else:
+                res_render_out = self.latent2image(
+                    pred_latents, que_camera, local_conditions=(alpha, beta), z_vals=que_info["z_vals"],
+                    noise=noise, generator=generator, train=train,
+                )
+            return {
+                "res_render_out": res_render_out,
+                "aligned_res": aligned_res,
+                # [B, H, W, 1, 1] for the ray-constant same-view lookup, [B, H, W, S, 1] per point
+                "in_img_mask": proj["in_img"].reshape(B, H, W, -1, 1),
+                "que_info": que_info,
+                "ref_hit_prob": ref_hit_prob,
+            }
 
     def _ref_view_weight(self, ref_info: dict[str, Any], que_pts: torch.Tensor) -> torch.Tensor:
         """Occlusion of the query points [B, H, W, S, 3] seen from the ref
         camera, [B, H, W, S, 1] (reference cycle_runner.py:133-161). With
         `force_background` all but the last sample are queried and the last
-        takes the leftover mass 1 - sum."""
+        takes the leftover mass 1 - sum. Data, as in JAX: the points, styles
+        and ref weight volume are detached, so the exact query launches the
+        kernel under a training step too."""
         c, renderer = self.cfg.renderer, self.generator.renderer
         cam = ref_info["cam_settings"]
+        que_pts = que_pts.detach()
         if c.occlusion_mode == "texture" and "global_render_out" in ref_info:
-            ref_vol = ref_info["global_render_out"]["hit_prob"]
+            ref_vol = ref_info["global_render_out"]["hit_prob"].detach()
             query = lambda p: renderer.query_hit_prob_texture(p, cam, ref_vol)  # noqa: E731
         else:
-            query = lambda p: renderer.query_hit_prob(p, cam, ref_info["pred_latents"][0])  # noqa: E731
+            styles = ref_info["pred_latents"][0].detach()
+            query = lambda p: renderer.query_hit_prob(p, cam, styles)  # noqa: E731
         if not c.force_background:
             return query(que_pts)
         hp = query(que_pts[..., :-1, :])

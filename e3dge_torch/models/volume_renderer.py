@@ -14,8 +14,9 @@ under `remat_field`); every other call launches the hand-written kernel
 `query_hit_prob`/`query_hit_prob_adapted` (one launch per chunk) and
 `render_sdf_grid` launch `siren_field_full` when serving or sampling
 training data, and `render_from_backbone` launches `siren_field_tex` on the
-cached backbone. On CPU tensors the same wrappers run their plain versions.
-The training parts: z-jitter (`forward(train=, generator=)`), the
+cached backbone (or, for a stage-2 re-render whose texture modulations need
+a gradient, runs the twin's texture head alone on it). On CPU tensors the
+same wrappers run their plain versions. The training parts: z-jitter (`forward(train=, generator=)`), the
 3D-supervision samplers and the module function `eikonal_term`.
 """
 
@@ -229,23 +230,30 @@ class VolumeFeatureRenderer(nn.Module):
         conditions: tuple[torch.Tensor, torch.Tensor] | None,
     ) -> dict[str, Any]:
         """Texture-head-only re-render on the cached backbone hidden (the
-        same-view E1 re-render): the texture SFT leaves the backbone, sdf and
+        same-view E1 re-render, and stage 2's conditioned re-render on the
+        query render's samples): the texture SFT leaves the backbone, sdf and
         integration weights of pass 1 unchanged, so only the view layer, the rgb
-        head and the weighted sums run again — `siren_field_tex`."""
+        head and the weighted sums run again — `siren_field_tex`, or, when the
+        call `needs_grad` (the conditions in training), the twin's `tex_head`
+        under autograd, in raw_h's precision."""
         h = cached["raw_h"]
         shp = h.shape[:-1]
         b, width = shp[0], h.shape[-1]
         n = shp[1] * shp[2] * shp[3]
-        precision = field_precision(h.dtype)
-        gamma, beta = self._film(styles, precision)
-        dirs = cached["viewdirs"][..., None, :].expand(*shp, 3).reshape(b, n, 3)
-        alpha = lbeta = None
-        if conditions is not None:
-            alpha, lbeta = (t.reshape(b, n, width).to(h.dtype).contiguous() for t in conditions)
-        feat, rgb_raw = siren_field_tex(
-            h.reshape(b, n, width), dirs.contiguous(), self.network.pack(precision),
-            gamma[:, -1].contiguous(), beta[:, -1].contiguous(), alpha, lbeta, precision=precision,
-        )
+        dirs = cached["viewdirs"][..., None, :].expand(*shp, 3)
+        if self.needs_grad(h, styles, *(conditions or ())):
+            rgb_raw, feat = self.network.tex_head(h, dirs.to(h.dtype), styles.to(h.dtype), conditions)
+        else:
+            precision = field_precision(h.dtype)
+            gamma, beta = self._film(styles, precision)
+            alpha = lbeta = None
+            if conditions is not None:
+                alpha, lbeta = (t.reshape(b, n, width).to(h.dtype).contiguous() for t in conditions)
+            feat, rgb_raw = siren_field_tex(
+                h.reshape(b, n, width), dirs.reshape(b, n, 3).contiguous(), self.network.pack(precision),
+                gamma[:, -1].contiguous(), beta[:, -1].contiguous(), alpha, lbeta, precision=precision,
+            )
+        rgb_raw = rgb_raw.float()
         weights = cached["hit_prob"]
         rgb = -1.0 + 2.0 * torch.sum(weights * torch.sigmoid(rgb_raw.reshape(*shp, 3)), dim=-2)
         out = dict(cached)

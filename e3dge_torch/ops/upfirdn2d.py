@@ -7,6 +7,12 @@ crop), 2D convolution with the *flipped* kernel as a depthwise conv, then
 stride-`down` subsampling. The JAX package's fused/phased XLA rewrites
 (`fuse_fir_upsample`, `conv2d_up_fused`, `conv_transpose2x_blur_phased`) are TPU
 layout rewrites of the same function and are not ported.
+
+The depthwise FIR is an autograd function whose backward is the same FIR
+(flipped kernel, full padding), so every derivative, the R1 penalty's double
+backward included, runs as a forward depthwise conv: on the card, cuDNN's own
+double backward of a grouped conv dominated the full-res D's R1 step (see
+chip_smoke.py phase 8's profile of that step).
 """
 
 from __future__ import annotations
@@ -29,6 +35,26 @@ def make_kernel(k) -> torch.Tensor:
 
 def _pair(v) -> tuple[int, int]:
     return (v, v) if isinstance(v, int) else tuple(v)
+
+
+class _DepthwiseFir(torch.autograd.Function):
+    """Valid correlation of each channel of [B, C, H, W] with a constant
+    [kh, kw] kernel; its gradient is the same op with the kernel flipped on
+    the gradient padded by (kh - 1, kw - 1)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(kernel)
+        c = x.shape[1]
+        weight = kernel.to(x.dtype).reshape(1, 1, *kernel.shape).expand(c, 1, *kernel.shape)
+        return F.conv2d(x.contiguous(), weight, groups=c)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        (kernel,) = ctx.saved_tensors
+        kh, kw = kernel.shape
+        grad = F.pad(grad, [kw - 1, kw - 1, kh - 1, kh - 1])
+        return _DepthwiseFir.apply(grad, torch.flip(kernel, (0, 1))), None
 
 
 def upfirdn2d(
@@ -61,9 +87,7 @@ def upfirdn2d(
         max(-pad_y0, 0) : x.shape[2] - max(-pad_y1, 0),
         max(-pad_x0, 0) : x.shape[3] - max(-pad_x1, 0),
     ]
-    weight = torch.flip(kernel, (0, 1)).to(device=x.device, dtype=x.dtype)
-    weight = weight.reshape(1, 1, kh, kw).expand(c, 1, kh, kw)
-    out = F.conv2d(x, weight, groups=c)
+    out = _DepthwiseFir.apply(x, torch.flip(kernel, (0, 1)).to(device=x.device))
     return out[:, :, ::down_y, ::down_x]
 
 

@@ -1,3 +1,3 @@
 """Training of the PyTorch port (counterparts of `e3dge_tpu/training`): losses,
-perceptual nets, optimizers and the stage-1 step, and the stage-1 trainer
-(`python -m e3dge_torch.training.train`)."""
+perceptual nets, optimizers, the stage-1 step, the stage-2 cycle step and the
+discriminator steps, and the trainer (`python -m e3dge_torch.training.train`)."""

@@ -1,7 +1,10 @@
-"""Stage-1 training of the port — counterpart of the stage-1 parts of
-`e3dge_tpu/training/steps.py` (reference AERunner.synthetic_forward,
-trainer.py:654-736): E0 trained on frozen-GAN samples with 2D reconstruction,
-latent and 3D shape supervision.
+"""Training steps of the port — counterpart of `e3dge_tpu/training/steps.py`:
+stage 1 (reference AERunner.synthetic_forward, trainer.py:654-736), E0 trained
+on frozen-GAN samples with 2D reconstruction, latent and 3D shape supervision;
+stage 2 (e3dge_2dalignonly_runner.py:354-465), the E1 branch trained by cycle
+reconstruction across identity-paired views, with the full-resolution D's
+adversarial term, its step (lazy R1) and the volume D's step
+(trainer.py:1100-1195).
 
 Freezing is `requires_grad_`: the trainable top modules (`STAGE1_TRAINABLE`)
 keep their gradients, every other parameter is frozen, and the frozen
@@ -10,13 +13,17 @@ generator is still differentiated THROUGH (its field by the eager twin, see
 chains, each one `torch.optim.Optimizer` in f32 with optax's order of
 operations: Adam, and Ranger (gradient centralisation + the reference RAdam +
 lookahead).
-The step is split into `stage1_loss` over a given batch and `make_stage1_step`,
-which samples the batch, so a test can feed JAX's batch.
+Each E step is split into a loss over a given batch (`stage1_loss`,
+`cycle_loss`) and a `make_*_step` that samples the batch, so a test can feed
+JAX's batch. The discriminators train only inside their own steps: outside
+them their parameters are frozen, so the E step differentiates through them
+without giving them gradients.
 """
 
 from __future__ import annotations
 
 import bisect
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Any, Callable, Iterable, Sequence
 
@@ -26,9 +33,12 @@ from torch import nn
 from e3dge_torch.models.volume_renderer import eikonal_term
 from e3dge_torch.ops import adaptive_avg_pool
 from e3dge_torch.training import losses as L
-from e3dge_torch.training.train_utils import make_noise
+from e3dge_torch.training.train_utils import ema_update, make_noise
 
 STAGE1_TRAINABLE = ("encoder",)
+STAGE21_TRAINABLE = ("local", "grid_align")
+STAGE22_TRAINABLE = ("local", "grid_align", "fuse_sft_block")
+EMA_DECAY = 0.5 ** (32 / 10_000)
 
 # stage-1 loss weights (reference scripts/train/ffhq/stage1.sh via
 # scripts/train.py:52-54), under the step's lambda names
@@ -36,6 +46,12 @@ STAGE1_LAMBDAS = dict(
     l2_lambda=1.0, lpips_lambda=0.8, id_lambda=0.1, latent_gt_lambda=1.0, shape_surface_lambda=1.0,
     shape_normal_lambda=1.0, shape_uniform_lambda=0.2, eikonal_lambda=0.1,
 )
+
+
+def stage22_trainable(fix_ada: bool = False) -> tuple[str, ...]:
+    """Stage-2.2's trainable set; `fix_ada` freezes the ADA aligner (reference
+    e3dge_2dalignonly_runner.py:591, stage2.2.sh sets --fix_ada)."""
+    return tuple(k for k in STAGE22_TRAINABLE if k != "grid_align") if fix_ada else STAGE22_TRAINABLE
 
 
 def pose_curriculum(
@@ -206,23 +222,29 @@ def make_optimizer(params: Iterable[torch.Tensor], lr: float = 1e-4, name: str =
 
 @dataclass
 class TrainState:
-    """The trainable parameters, their optimizer and the step count. BatchNorm
-    running statistics live in the model's buffers."""
+    """The trainable parameters, their optimizer, the step count and, when
+    kept, their EMA (reference accumulate). BatchNorm running statistics live
+    in the model's buffers."""
 
     step: int
     params: dict[str, nn.Parameter]
     optimizer: torch.optim.Optimizer
+    ema: dict[str, torch.Tensor] | None = None
 
 
 def create_train_state(model: nn.Module, trainable_keys: Sequence[str], lr: float,
-                       optimizer: str = "adam") -> TrainState:
+                       optimizer: str = "adam", ema: bool = False) -> TrainState:
     params = split_params(model, trainable_keys)
-    return TrainState(step=0, params=params, optimizer=make_optimizer(params.values(), lr, optimizer))
+    return TrainState(step=0, params=params, optimizer=make_optimizer(params.values(), lr, optimizer),
+                      ema={k: p.detach().clone() for k, p in params.items()} if ema else None)
 
 
 def optimizer_step(state: TrainState) -> None:
-    """One optimizer step on the gradients the backward left; step + 1."""
+    """One optimizer step on the gradients the backward left, then the EMA
+    update at EMA_DECAY when kept; step + 1."""
     state.optimizer.step()
+    if state.ema is not None:
+        ema_update(state.ema.values(), state.params.values(), EMA_DECAY)
     state.step += 1
 
 
@@ -301,6 +323,247 @@ def make_stage1_step(
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         optimizer_step(state)
+        return {k: v.detach() for k, v in metrics.items()}
+
+    return train_step
+
+
+# ------------------------------------------------------------------- stage 2
+
+
+def _swap_odd_even(x: torch.Tensor) -> torch.Tensor:
+    """Entries 0<->1, 2<->3, ... along axis 0 (reference
+    _swap_odd_even_index_view, training_utils.py:98-119)."""
+    n = x.shape[0]
+    i = torch.arange(n, device=x.device)
+    return x.index_select(0, i + torch.where(i % 2 == 0, 1, -1))
+
+
+def swap_tree(tree):
+    """`_swap_odd_even` over every tensor of a tree of dicts, lists and
+    (named) tuples; other leaves are kept."""
+    if isinstance(tree, torch.Tensor):
+        return _swap_odd_even(tree)
+    if isinstance(tree, dict):
+        return {k: swap_tree(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(swap_tree(v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(swap_tree(v) for v in tree)
+    return tree
+
+
+@contextmanager
+def _trainable(module: nn.Module):
+    """The module's parameters require grad for the block only (a
+    discriminator inside its own step)."""
+    module.requires_grad_(True)
+    try:
+        yield
+    finally:
+        module.requires_grad_(False)
+
+
+def _grads(loss: torch.Tensor, params: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    """d loss / d params with the graph kept; zeros where loss does not reach."""
+    if not loss.requires_grad:
+        return [torch.zeros_like(p) for p in params]
+    gs = torch.autograd.grad(loss, params, retain_graph=True, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g for g, p in zip(gs, params)]
+
+
+def cycle_loss(
+    model,
+    batch: dict[str, Any],
+    mean_latents,
+    lambdas: dict[str, float],
+    lpips_fn: Callable | None = None,
+    id_fn: Callable | None = None,
+    use_ref_view_weight: bool = False,
+    d_fn: Callable[[torch.Tensor], torch.Tensor] | None = None,
+    adaptive_params: Sequence[torch.Tensor] | None = None,
+    disc_weight_max: float = 1.0,
+    noise=None,
+) -> tuple[torch.Tensor, dict[str, torch.Tensor], dict[str, Any]]:
+    """The stage-2 cycle loss on an identity-paired frozen-GAN batch
+    (`steps.py:410-519`): encode each view as a reference in train mode,
+    render its odd/even partner's view through the E1 branch, and compare
+    with that partner: MSE (+ LPIPS + ID) pooled to at most 256^2, with
+    `d_fn` (the full-res D, adv_lambda > 0) the non-saturating G loss on the
+    pooled reconstruction, MSE of the thumbs, L1 of the aligned residual
+    against the partner's residual (res_lambda), and the hit-probability and
+    depth consistency with the query's global render. With
+    `adaptive_params` (the probe: the `local` parameters) the adversarial
+    term is weighted by clip(|d loss_2d| / (|d adv| + 1e-4), 0,
+    disc_weight_max) over them, taken from this one forward by two
+    retain-graph pulls, as a constant. Returns (loss, metrics, the query
+    render's output)."""
+    ref_info = model.encode_ref_images(batch["images"], mean_latents, batch["cam_settings"], train=True)
+    que_out = model.que_render_given_ref(ref_info, swap_tree(batch["cam_settings"]), train=True,
+                                         use_ref_view_weight=use_ref_view_weight, noise=noise)
+    rec = que_out["res_render_out"]
+    res = min(rec["gen_imgs"].shape[-1], 256)
+    rec_256 = adaptive_avg_pool(rec["gen_imgs"], res)
+    loss_2d, m = L.calc_2d_rec_loss(rec_256, adaptive_avg_pool(swap_tree(batch["images"]), res), lambdas,
+                                    lpips_fn, id_fn)
+    loss = loss_2d
+    if d_fn is not None and lambdas.get("adv_lambda", 0.0) > 0:
+        adv = L.g_nonsaturating_loss(d_fn(rec_256))
+        weight = 1.0
+        if adaptive_params is not None:
+            weight = L.calculate_adaptive_weight(_grads(loss_2d, adaptive_params), _grads(adv, adaptive_params),
+                                                 disc_weight_max)
+            m["d_weight"] = weight
+        loss = loss + lambdas["adv_lambda"] * weight * adv
+        m["loss_e_adv"] = adv
+    if lambdas.get("supervise_both_gen_imgs", 1.0) > 0:
+        m["thumb_rec"] = lambdas.get("l2_lambda", 1.0) * L.mse(rec["gen_thumb_imgs"], swap_tree(batch["thumb_images"]))
+        loss = loss + m["thumb_rec"]
+    if lambdas.get("res_lambda", 0.0) > 0:
+        m["res_loss"] = L.l1(que_out["aligned_res"], swap_tree(ref_info["orig_res_gt"]))
+        loss = loss + lambdas["res_lambda"] * m["res_loss"]
+    que_info = que_out["que_info"]
+    if lambdas.get("hit_prob_consistency_lambda", 0.0) > 0:
+        m["hit_prob_consistency"] = L.hit_prob_consistency_loss(rec["hit_prob"], que_info["hit_prob"])
+        loss = loss + lambdas["hit_prob_consistency_lambda"] * m["hit_prob_consistency"]
+    if lambdas.get("depth_lambda", 0.0) > 0:
+        m["depth_consistency"] = L.depth_consistency_loss(rec["depth"], que_info["depth"])
+        loss = loss + lambdas["depth_lambda"] * m["depth_consistency"]
+    m["loss"] = loss
+    return loss, m, que_out
+
+
+def make_cycle_step(
+    model,
+    lambdas: dict[str, float],
+    state: TrainState,
+    lpips_fn: Callable | None = None,
+    id_fn: Callable | None = None,
+    pose_scale_schedule: Callable[[int], float] = lambda step: 1.0,
+    use_ref_view_weight: bool = False,
+    d_fn: Callable[[torch.Tensor], torch.Tensor] | None = None,
+    adaptive_d_loss: bool = False,
+):
+    """train_step(mean_latents, batch_size, generator=None) -> metrics: one
+    set of decoder noise maps, an identity-paired frozen-GAN batch at the
+    schedule's pose scale, `cycle_loss` (the adaptive weight probed at the
+    `local` parameters, as JAX's default probe), its backward,
+    `optimizer_step` with the EMA (`steps.py:367-559`)."""
+    probe = None
+    if adaptive_d_loss and d_fn is not None and lambdas.get("adv_lambda", 0.0) > 0:
+        probe = [p for k, p in state.params.items() if k.startswith("local.")]
+
+    def train_step(mean_latents, batch_size: int, generator: torch.Generator | None = None):
+        noise = decoder_noise(model, batch_size, generator)
+        batch = model.synthetic_sample(batch_size, pose_scale_schedule(state.step), pair_same_id=True,
+                                       generator=generator, noise=noise)
+        loss, metrics, _ = cycle_loss(model, batch, mean_latents, lambdas, lpips_fn, id_fn, use_ref_view_weight,
+                                      d_fn, probe, noise=noise)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        optimizer_step(state)
+        return {k: v.detach() for k, v in metrics.items()}
+
+    return train_step
+
+
+# ------------------------------------------------------------------ D steps
+
+
+@torch.no_grad()
+def full_d_batch(model, mean_latents, batch_size: int, d_res: int, generator: torch.Generator | None = None):
+    """(fakes, reals) for the full-res D at d_res^2: a fresh frozen-GAN batch
+    and its reconstruction by `image2image` at the batch's cameras, with one
+    set of decoder noise maps (scripts/train.py:316-334)."""
+    noise = decoder_noise(model, batch_size, generator)
+    b = model.synthetic_sample(batch_size, 1.0, generator=generator, noise=noise)
+    out = model.image2image(b["images"], mean_latents, b["cam_settings"], noise=noise)
+    return adaptive_avg_pool(out["res_render_out"]["gen_imgs"], d_res), adaptive_avg_pool(b["images"], d_res)
+
+
+@torch.no_grad()
+def volume_d_batch(model, mean_latents, batch_size: int, generator: torch.Generator | None = None):
+    """(real thumbs, fake thumbs, the fakes' viewpoints) for the volume D: the
+    global reconstruction of one frozen-GAN batch at its known cameras, and
+    the thumbs of another (scripts/train.py:349-373; the second batch's render
+    stops before the decoder, whose output the D does not see)."""
+    noise = decoder_noise(model, batch_size, generator)
+    b = model.synthetic_sample(batch_size, 1.0, generator=generator, noise=noise)
+    out = model.image2image_global(b["images"], mean_latents, b["cam_settings"], noise=noise)
+    reals = model.synthetic_sample(batch_size, 1.0, renderer_only=True, generator=generator)
+    return reals["thumb_images"], out["gen_thumb_imgs"], b["cam_settings"].viewpoint
+
+
+def make_volume_d_step(model, lambdas: dict[str, float], optimizer: torch.optim.Optimizer):
+    """train_step(real_thumbs, fake_thumbs, fake_viewpoints) -> metrics: the
+    volume D's logistic loss * discriminator_lambda, the viewpoint regression
+    on the fake thumbs (whose cameras are known) * viewpoint_lambda, and
+    r1/2 * R1 on the real thumbs (`steps.py:587-629`, reference
+    trainer.py:1165-1186); `optimizer` holds the volume D's parameters."""
+    d = model.volume_discriminator
+
+    def train_step(real_thumbs, fake_thumbs, fake_viewpoints):
+        with _trainable(d):
+            real_pred, _ = d(real_thumbs)
+            fake_pred, fake_vp = d(fake_thumbs)
+            d_gan = L.d_logistic_loss(real_pred, fake_pred)
+            vp = L.viewpoint_loss(fake_vp, fake_viewpoints)
+            loss = d_gan * lambdas.get("discriminator_lambda", 1.0) + lambdas.get("viewpoint_lambda", 1.0) * vp
+            metrics = {"d": d_gan, "viewpoint": vp, "real_score": real_pred.mean(), "fake_score": fake_pred.mean()}
+            if lambdas.get("r1", 0.0) > 0:
+                metrics["r1"] = L.d_r1_penalty(lambda x: d(x)[0], real_thumbs)
+                loss = loss + lambdas["r1"] / 2.0 * metrics["r1"]
+            metrics["d_loss"] = loss
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            optimizer.step()
+            optimizer.zero_grad(set_to_none=True)
+        return {k: v.detach() for k, v in metrics.items()}
+
+    return train_step
+
+
+@dataclass
+class DState:
+    """A standalone discriminator, its optimizer and its step count (the
+    reference keeps the full-res D as its own network, trainer.py:1700-1728)."""
+
+    step: int
+    d: nn.Module
+    optimizer: torch.optim.Optimizer
+
+
+def create_d_state(d: nn.Module, lr: float, optimizer: str = "adam") -> DState:
+    """The D frozen outside its step (see `_trainable`), with its optimizer."""
+    d.requires_grad_(False)
+    return DState(step=0, d=d, optimizer=make_optimizer(list(d.parameters()), lr, optimizer))
+
+
+def make_full_d_step(lambdas: dict[str, float], state: DState, d_reg_every: int = 16):
+    """train_step(real_imgs, fake_imgs) -> metrics: the full-res D's logistic
+    loss * discriminator_lambda on reals against (detached) fakes, plus every
+    `d_reg_every` steps the lazy R1 on the reals scaled by r1 * 0.5 *
+    d_reg_every (`steps.py:645-703`, reference trainer.py:1119-1165); "r1" is
+    0 on the other steps."""
+    d = state.d
+
+    def train_step(real_imgs, fake_imgs):
+        with _trainable(d):
+            real_pred, fake_pred = d(real_imgs), d(fake_imgs.detach())
+            d_gan = L.d_logistic_loss(real_pred, fake_pred)
+            loss = d_gan * lambdas.get("discriminator_lambda", 1.0)
+            metrics = {"d": d_gan, "real_score": real_pred.mean(), "fake_score": fake_pred.mean()}
+            r1 = lambdas.get("r1", 0.0)
+            if r1 > 0:
+                metrics["r1"] = torch.zeros((), device=d_gan.device)
+                if state.step % d_reg_every == 0:
+                    metrics["r1"] = L.d_r1_penalty(d, real_imgs)
+                    loss = loss + (r1 * 0.5 * d_reg_every) * metrics["r1"]
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            state.optimizer.step()
+            state.optimizer.zero_grad(set_to_none=True)
+        state.step += 1
         return {k: v.detach() for k, v in metrics.items()}
 
     return train_step

@@ -8,8 +8,11 @@ HWIO conv kernels -> OIHW and flax Dense kernels [in, out] -> [out, in]. The
 result loads into the port's modules with `load_state_dict(strict=True)`, and
 `torch_ckpt.ingest_variables` of it gives back the JAX leaves exactly.
 `batch_stats_to_jax` carries the BatchNorm running statistics back into a JAX
-`batch_stats` layout, and `perceptual_state_dict_from_jax` carries the JAX
-package's perceptual nets (LPIPS, the ArcFace of IDLoss) across by the rules of
+`batch_stats` layout, `discriminator_state_dict_from_jax` carries the
+full-resolution `Discriminator` (its own variables in the JAX package) by the
+rules of `flax_path_to_torch`'s "discriminator" branch, and
+`perceptual_state_dict_from_jax` carries the JAX package's perceptual nets
+(LPIPS, the ArcFace of IDLoss) across by the rules of
 `torch_ckpt.lpips_path_to_torch` / `arcface_path_to_torch`, inverted.
 """
 
@@ -296,6 +299,48 @@ def batch_stats_to_jax(model: nn.Module, template: dict) -> dict:
         return out
 
     return walk(template, "batch_stats")
+
+
+_DISC_TABLE = {
+    "convs_0/conv/weight": "convs.0.0.weight",
+    "convs_0/bias": "convs.0.1.bias",
+    "final_conv/conv/weight": "final_conv.0.weight",
+    "final_conv/bias": "final_conv.1.bias",
+    "final_linear_0/weight": "final_linear.0.weight",
+    "final_linear_0/bias": "final_linear.0.bias",
+    "final_linear_1/weight": "final_linear.1.weight",
+    "final_linear_1/bias": "final_linear.1.bias",
+}
+# DiscResBlock: ConvLayer Sequentials, the downsampling ones behind a blur (index 0)
+_DISC_BLOCK = {
+    "conv1/conv/weight": "conv1.0.weight",
+    "conv1/bias": "conv1.1.bias",
+    "conv2/conv/weight": "conv2.1.weight",
+    "conv2/bias": "conv2.2.bias",
+    "skip/conv/weight": "skip.1.weight",
+}
+
+
+def _discriminator_rule(rel: str) -> str | None:
+    if rel in _DISC_TABLE:
+        return _DISC_TABLE[rel]
+    m = re.match(r"convs_(\d+)/(.+)", rel)
+    if m and int(m.group(1)) > 0 and m.group(2) in _DISC_BLOCK:
+        return f"convs.{m.group(1)}.{_DISC_BLOCK[m.group(2)]}"
+    return None
+
+
+def discriminator_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """The JAX `Discriminator`'s params (its `variables["params"]`) -> the
+    port's `Discriminator` state dict (the layouts are torch's on both
+    sides). Raises on a leaf it cannot map."""
+    sd = {}
+    for rel, value in _flatten(params).items():
+        key = _discriminator_rule(rel)
+        if key is None:
+            raise KeyError(f"discriminator: no torch key for {rel}")
+        sd[key] = torch.from_numpy(np.array(value, dtype=np.float32))
+    return sd
 
 
 _LPIPS_TV = {0: (1, 0), 1: (2, 3), 2: (3, 6), 3: (4, 8), 4: (5, 10)}  # conv i -> (slice, torchvision index)

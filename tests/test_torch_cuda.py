@@ -122,3 +122,68 @@ def test_grad_render_takes_the_twin_on_the_card(card, field_dtype):
     assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
     err = (got["gen_thumb_imgs"].detach() - want["gen_thumb_imgs"]).abs()
     assert float(err.max() if field_dtype == "float32" else err.mean()) < 3e-3
+
+
+@pytest.mark.cuda
+def test_stage2_texture_tail_route_on_the_card(card):
+    """Stage 2's conditioned re-render: with texture modulations that require
+    grad, `render_from_backbone` runs the twin's texture head on the kernel's
+    cached backbone (no launch) and agrees with the kernel's texture pass on
+    the same modulations within the field tolerance 3e-3, with a finite,
+    non-zero gradient on the modulations."""
+    from e3dge_torch.config import RendererConfig
+    from e3dge_torch.models.volume_renderer import VolumeFeatureRenderer
+    from e3dge_torch.render.camera import camera_params_from_angles
+
+    torch.manual_seed(0)
+    ren = VolumeFeatureRenderer(RendererConfig(out_im_res=16, n_samples=8)).to(card)
+    ren.requires_grad_(False)
+    cam = camera_params_from_angles(torch.tensor([0.1, -0.2], device=card), torch.tensor([0.05, 0.0], device=card),
+                                    16)
+    styles = 0.3 * torch.randn(2, 9, 256, device=card)
+    sf.reset_launch_counts()
+    with torch.no_grad():
+        cached = ren(cam, styles, return_raw_h=True)
+    alpha, lbeta = (0.1 * torch.randn(*cached["raw_h"].shape, device=card) for _ in range(2))
+    with torch.no_grad():
+        want = ren.render_from_backbone(cached, styles, (alpha, lbeta))
+    assert sf.launch_counts == {"siren_field_full": 1, "siren_field_tex": 1}
+    a = alpha.clone().requires_grad_()
+    got = ren.render_from_backbone(cached, styles, (a, lbeta))
+    assert sf.launch_counts == {"siren_field_full": 1, "siren_field_tex": 1}
+    for k in ("gen_thumb_imgs", "features"):
+        assert float((got[k].detach() - want[k]).abs().max()) < 3e-3, k
+    (g,) = torch.autograd.grad(got["gen_thumb_imgs"].square().sum() + got["features"].sum(), a)
+    assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry,raw_h", [("full", False), ("full", True), ("tex", False)])
+def test_stage2_highest_launch_shapes_match_plain(card, entry, raw_h):
+    """The f32 (`highest`) kernel at the stage-2 iteration's new shapes,
+    B=4 x 64*64*24 points: the full pass without raw_h (the sample and ref
+    renders) and with it (the query and image2image renders), the texture
+    pass with SFT (the D's fake producer)."""
+    n, precision = 64 * 64 * 24, "highest"
+    args = _inputs(card, precision, n=n, sft=entry == "tex", b=4)
+    sf.reset_launch_counts()
+    with torch.no_grad():
+        if entry == "full":
+            got = sf.siren_field_full(*args[:5], precision=precision, return_raw_h=raw_h)
+            want = sf.siren_field_reference(*args[:5], precision=precision, return_raw_h=raw_h)
+            kinds = ("hidden", "head", "hidden")
+        else:
+            raw = sf.siren_field_reference(*args[:5], precision=precision, return_raw_h=True)[2]
+            tex_args = (raw, args[1], args[2], args[3][:, -1].contiguous(), args[4][:, -1].contiguous(), args[5],
+                        args[6])
+            got = sf.siren_field_tex(*tex_args, precision=precision)
+            want = sf.siren_field_tex_reference(*tex_args, precision=precision)
+            kinds = ("hidden", "head")
+    torch.cuda.synchronize()
+    assert sf.launch_counts[f"siren_field_{entry}"] == 1
+    for g, w, kind in zip(got, want, kinds):
+        if w is None:
+            assert g is None
+            continue
+        mx, mean, ok = sf.kernel_errors(g, w, kind, precision)
+        assert ok, f"{kind} output: max {mx:.3e} mean {mean:.3e} against {sf.KERNEL_TOLERANCE[precision][kind]}"

@@ -67,6 +67,18 @@ def _port(cfg, vs):
     return m
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the module's torch work (imported by the
+    stage-2 tests too): at these shapes more threads buy nothing alone, and in
+    a parallel test run they oversubscribe the cores (a 2 s test took 139 s
+    at 6 workers x 8 threads)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def setup(tiny_test_setup):
     cfg, jmodel, variables, _ = tiny_test_setup
@@ -525,7 +537,7 @@ def test_stage1_remat_field_gives_equal_loss_and_grads(setup, perceptual, stage1
 
 
 def test_trainer_entry_point_runs_and_saves_e0(tmp_path):
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env = {**{k: v for k, v in os.environ.items() if k != "PYTHONPATH"}, "OMP_NUM_THREADS": "1"}
     proc = subprocess.run(
         [sys.executable, "-m", "e3dge_torch.training.train", "--tiny", "--iters", "2", "--batch", "2",
          "--device", "cpu", "--work-dir", str(tmp_path)],
