@@ -7,7 +7,8 @@ Phases, each failing loudly (any failure exits non-zero before the last line):
   2. build of the field kernels (csrc/*.cu, nvcc for sm_90a), timed; ptxas
      registers and spills per kernel, and from `cuobjdump -sass` the count of
      HGMMA (wgmma) and bulk-copy/TMA (UBLKCP/UTMALDG) instructions per kernel
-     entry and precision: fails if a `serving` entry has no HGMMA or spills;
+     entry and precision: fails if any entry has no HGMMA or spills, or if
+     the library holds a kernel that is not one of the four entries;
   3. the kernel against its plain version on the card: both entries, both
      precisions, with and without SFT, at N=300 and at the full width of one
      image (D=8, W=256, B=1, N=64*64*24), and in `serving` at B=2, N=64*64*24+37
@@ -95,8 +96,10 @@ import torch
 
 SEED = 0
 N_FULL = 64 * 64 * 24
-# H100 SXM data-sheet peaks (dense): bf16 tensor cores, f32 outside them, HBM3
+# H100 SXM data-sheet peaks (dense): bf16 and TF32 tensor cores, f32 outside
+# them, HBM3
 PEAK_BF16_TC = 989e12
+PEAK_TF32_TC = 495e12
 PEAK_F32 = 67e12
 HBM_BYTES_PER_S = 3.35e12
 # f32 image2image, card vs CPU: field outputs agree to the goldens' 3e-3
@@ -110,8 +113,8 @@ EPILOGUE_INSTR = 14
 KERNEL_ENTRIES = {
     "siren_field_tc_kernelILb0E": ("siren_field_full", "serving"),
     "siren_field_tc_kernelILb1E": ("siren_field_tex", "serving"),
-    "siren_field_kernelILb0E": ("siren_field_full", "highest"),
-    "siren_field_kernelILb1E": ("siren_field_tex", "highest"),
+    "siren_field_tf32_kernelILb0E": ("siren_field_full", "highest"),
+    "siren_field_tf32_kernelILb1E": ("siren_field_tex", "highest"),
 }
 # bf16 image2image against f32 on the same weights, input and noise: mean
 # |bf16 - f32| / max |f32| as tests/test_precision.py:94 holds the JAX bf16
@@ -156,10 +159,14 @@ def kernel_entry(mangled: str) -> tuple[str, str] | None:
 
 
 def check_build(path, build_log: str) -> dict:
-    """Phase 2: per kernel entry and precision, ptxas's registers, spill bytes
-    and injected warpgroup fences (C7519), and the SASS counts of HGMMA
-    (wgmma) and bulk-copy/TMA (UBLKCP/UTMALDG) instructions. Fails if a
-    `serving` entry has no HGMMA or spills. An empty log (library already
+    """Phase 2: per kernel entry and precision, ptxas's registers (the launch
+    count; `sass_max_register` is the highest register the code names, which
+    setmaxnreg lets a consumer warpgroup raise past it), spill bytes, stack
+    frame, injected warpgroup fences (C7519) and wgmma serialisation
+    (C7510/C7511), and the SASS counts of HGMMA (wgmma) and bulk-copy/TMA
+    (UBLKCP/UTMALDG) instructions. Fails if an entry has no HGMMA or spills,
+    or if the library holds a kernel function that is none of the entries
+    (the replaced scalar f32 kernel, say). An empty log (library already
     built) leaves the ptxas columns None."""
     from e3dge_torch.ops import siren_field as sf
 
@@ -168,15 +175,20 @@ def check_build(path, build_log: str) -> dict:
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
         if m:
             func = m.group(1)
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and func:
-            ptxas[func]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+            ptxas[func]["stack_frame"] = int(m.group(1))
+            ptxas[func]["spill_bytes"] = int(m.group(2)) + int(m.group(3))
         m = re.search(r"Used (\d+) registers", line)
         if m and func:
             ptxas[func]["registers"] = int(m.group(1))
-        m = re.search(r"C7519.* in function '(\w+)'", line)
+        m = re.search(r"\((C75\d\d)\).* in (?:the )?function '(\w+)'", line)
         if m:
-            ptxas[m.group(1)]["injected_fences"] = ptxas[m.group(1)].get("injected_fences", 0) + 1
+            key = "serialized_wgmma" if "serialized" in line else "injected_fences" if m.group(1) == "C7519" else None
+            if key:
+                ptxas[m.group(2)][key] = ptxas[m.group(2)].get(key, 0) + 1
+            if key != "injected_fences":
+                log(f"  ptxas: {line.strip()[:160]}")
         elif "warning" in line:
             log(f"  ptxas: {line.strip()}")
     cuobjdump = os.path.join(os.path.dirname(sf.nvcc_path()), "cuobjdump")
@@ -186,13 +198,15 @@ def check_build(path, build_log: str) -> dict:
         name = block.split()[0]
         entry = kernel_entry(name)
         if entry is None:
-            continue
+            raise AssertionError(f"the built library holds a kernel that is no field entry: {name}")
         info = next((v for k, v in ptxas.items() if k == name), {})
         counts[entry] = {"registers": info.get("registers"), "spill_bytes": info.get("spill_bytes"),
-                         "injected_fences": info.get("injected_fences", 0) if info else None,
+                         "stack_frame": info.get("stack_frame"),
+                         **{k: info.get(k, 0) if info else None for k in ("injected_fences", "serialized_wgmma")},
+                         "sass_max_register": max(map(int, re.findall(r"\bR(\d+)\b", block)), default=None),
                          **{op: len(re.findall(rf"\b{op}\b", block)) for op in ("HGMMA", "UBLKCP", "UTMALDG")}}
         log(f"  {entry[0]:16s} {entry[1]:7s} {counts[entry]}")
-    for entry in (("siren_field_full", "serving"), ("siren_field_tex", "serving")):
+    for entry in set(KERNEL_ENTRIES.values()):
         c = counts.get(entry)
         if not c or c["HGMMA"] == 0:
             raise AssertionError(f"{entry} runs no wgmma (HGMMA) in the built library: {c}")
@@ -274,12 +288,15 @@ def field_bounds(n: int, precision: str, depth: int = 8, width: int = 256, batch
     the bytes (each input read once, each output written once) over the HBM
     rate and the operations over their pipe's peak. The full entry reads
     alpha/lbeta when `sft` and writes raw_h when `raw_h` (the main path's pass
-    1 does; a novel-view re-render reads the SFT and writes no raw_h).
-    `serving`: bf16 weights and io, the matmuls on the bf16 tensor cores beside
-    the FiLM sines (fast_sin ~ 16 f32 flops) on the f32 pipe; `highest`: f32
-    weights and io, both on the f32 pipe. Also the epilogue's f32-pipe floor:
-    EPILOGUE_INSTR instructions per activation at the f32 instruction rate
-    (half the flop rate)."""
+    1 does; a novel-view re-render reads the SFT and writes no raw_h). The
+    256x256 products go to the tensor cores: `serving` once on bf16
+    operands, `highest` three times on TF32 operands (3xTF32 split products);
+    the FiLM sines (~16 f32 flops each) and the K=3 layers and heads go to the
+    f32 pipe beside them. bf16 weights and io in `serving`, f32 in `highest`.
+    Also the epilogue's f32-pipe floor (EPILOGUE_INSTR instructions per
+    activation at the f32 instruction rate, half the flop rate) and, for
+    `highest`, `fma_bound_ms`: the bound with every product on the f32 pipe
+    (the yardstick of the scalar f32 kernel this one replaced)."""
     io, f4 = (2 if precision == "serving" else 4), 4
     weights = (3 * width + (depth - 1) * width * width + width * width + 3 * width + width + 3 * width) * io
     film = batch * 2 * (depth + 1) * width * f4
@@ -287,20 +304,33 @@ def field_bounds(n: int, precision: str, depth: int = 8, width: int = 256, batch
     full_bytes = (batch * n * 3 * f4 * 2 + weights + film + n_io * (1 + int(raw_h) + 2 * int(sft))
                   + batch * n * 4 * f4)  # pts, dirs, [alpha, lbeta] in; feat, [raw_h], rgb_sdf out
     n *= batch
-    full_mm = 2 * n * width * (3 + (depth - 1) * width + width + 3 + 1 + 3)
+    full_tc, full_small = 2 * n * width * width * depth, 2 * n * width * (3 + 3 + 1 + 3)
     tex_bytes = n * width * io * 3 + n * 3 * f4 + (width * width + 6 * width) * io + 2 * batch * width * f4 \
         + n * width * io + n * 3 * f4  # raw_h, alpha, lbeta, dirs in; feat, rgb out
-    tex_mm = 2 * n * width * (width + 3 + 3)
+    tex_tc, tex_small = 2 * n * width * width, 2 * n * width * (3 + 3)
+    tc_time = 1 / PEAK_BF16_TC if precision == "serving" else 3 / PEAK_TF32_TC  # s per tensor-core flop
     out = {}
-    for name, nbytes, mm, acts in (("siren_field_full", full_bytes, full_mm, n * width * (depth + 1)),
-                                   ("siren_field_tex", tex_bytes, tex_mm, n * width)):
-        sin = 16 * acts
-        ops = max(mm / PEAK_BF16_TC, sin / PEAK_F32) if precision == "serving" else (mm + sin) / PEAK_F32
-        terms = {"bytes": nbytes / HBM_BYTES_PER_S, "operations": ops}
+    for name, nbytes, tc, small, acts in (
+            ("siren_field_full", full_bytes, full_tc, full_small, n * width * (depth + 1)),
+            ("siren_field_tex", tex_bytes, tex_tc, tex_small, n * width)):
+        f32_pipe = (small + 16 * acts) / PEAK_F32
+        terms = {"bytes": nbytes / HBM_BYTES_PER_S, "operations": max(tc * tc_time, f32_pipe)}
         by = max(terms, key=terms.get)
         out[name] = {"bound_ms": terms[by] * 1e3, "bound_by": by,
                      "epilogue_floor_ms": EPILOGUE_INSTR * acts / (PEAK_F32 / 2) * 1e3}
+        if precision == "highest":
+            out[name]["fma_bound_ms"] = max(terms["bytes"], (tc + small + 16 * acts) / PEAK_F32) * 1e3
     return out
+
+
+def bound_keys(bd: dict) -> dict:
+    """The kernels line's bound keys of one `field_bounds` entry."""
+    return {k: bd[k] for k in ("bound_ms", "bound_by", "fma_bound_ms") if k in bd}
+
+
+def bound_text(bd: dict) -> str:
+    fma = f", f32-FMA bound {bd['fma_bound_ms']:.4f} ms" if "fma_bound_ms" in bd else ""
+    return f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}){fma}"
 
 
 def time_kernels(device) -> dict:
@@ -390,10 +420,10 @@ def check_and_time_full(label: str, batch: int, n: int, sft: bool, precision: st
         plain_ms = cuda_ms(lambda: sf.siren_field_reference(*args, precision=precision, return_raw_h=raw_h), iters=3)
     bd = field_bounds(n, precision, batch=batch, sft=sft, raw_h=raw_h)["siren_field_full"]
     log(f"  {label}: siren_field_full {precision} B={batch} N={n}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}), epilogue f32-pipe floor {bd['epilogue_floor_ms']:.4f} ms")
+        f"{bound_text(bd)}, epilogue f32-pipe floor {bd['epilogue_floor_ms']:.4f} ms")
     del x, dirs, args
     torch.cuda.empty_cache()
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"]}
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound_keys(bd)}
 
 
 def check_and_time_tex(label: str, batch: int, n: int, precision: str, device) -> dict:
@@ -418,10 +448,10 @@ def check_and_time_tex(label: str, batch: int, n: int, precision: str, device) -
         plain_ms = cuda_ms(lambda: sf.siren_field_tex_reference(*args, precision=precision), iters=3)
     bd = field_bounds(n, precision, batch=batch)["siren_field_tex"]
     log(f"  {label}: siren_field_tex {precision} B={batch} N={n}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+        f"{bound_text(bd)}")
     del x, raw_h, args
     torch.cuda.empty_cache()
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"]}
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound_keys(bd)}
 
 
 def check_path_shapes(device) -> None:
@@ -869,7 +899,7 @@ def st1_kernel_check(device) -> dict:
     for label, batch, n, sdf_only in st1_kernel_cases():
         r = check_and_time_full(label, batch, n, False, "highest", device, sdf_only=sdf_only)
         shapes.append({"label": label, "batch": batch, "n": n, **r})
-    render = {k: shapes[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+    render = {k: shapes[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "fma_bound_ms")}
     return {**render, "max_abs_err": max(r["max_abs_err"] for r in shapes), "shapes": shapes}
 
 
@@ -1403,8 +1433,8 @@ def main() -> int:
     bounds = {p: field_bounds(N_FULL, p) for p in ("serving", "highest")}
     for (name, precision), (ms, plain_ms) in times.items():
         bd = bounds[precision][name]
-        log(f"  {name} {precision}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms "
-            f"({bd['bound_by']}), epilogue f32-pipe floor {bd['epilogue_floor_ms']:.4f} ms")
+        log(f"  {name} {precision}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, {bound_text(bd)}, "
+            f"epilogue f32-pipe floor {bd['epilogue_floor_ms']:.4f} ms")
     bounds = bounds["serving"]
     times = {name: times[(name, "serving")] for name in ("siren_field_full", "siren_field_tex")}
     with torch.no_grad():
@@ -1473,7 +1503,7 @@ def main() -> int:
         "source": "e3dge_torch/csrc/siren_field.cu",
         "replaces": "e3dge_tpu/ops/pallas/siren_kernel.py:48",
         "launches": st2["launches"]["siren_field_tex"],
-        **{k: tex[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+        **{k: tex[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "fma_bound_ms")},
         "library_ms": None,
         "launches_by_path": {"stage1_step": st1["per_step"]["siren_field_tex"],
                              "stage2_iteration": st2["per_iter"]["siren_field_tex"]},

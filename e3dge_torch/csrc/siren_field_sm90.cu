@@ -2,8 +2,9 @@
 // wgmma on bf16 operands fed by a bulk-copy (TMA engine) ring of weight stages.
 // The port of e3dge_tpu/ops/pallas/siren_kernel.py::_siren_kernel (launched by
 // siren_query_fused) for the precision the serving path runs; the `highest`
-// (f32) precision stays the scalar kernel of siren_field.cu. Wrapper, host
-// weight pack, plain version and launch counts: e3dge_torch/ops/siren_field.py.
+// (f32) precision is siren_field.cu (3xTF32 on the same pipeline). Wrapper,
+// host weight pack, plain version and launch counts:
+// e3dge_torch/ops/siren_field.py; the ring and PTX helpers: sm90_ring.cuh.
 //
 // Arithmetic (that of the plain version, ops/siren_field.py, in `serving`):
 // matmul operands bf16, f32 accumulation; act(x) = bf16(fast_sin(g*(x+b)+e));
@@ -46,7 +47,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm90_ring.cuh"
+
 namespace {
+
+using namespace sm90;
 
 constexpr int W = 256;                          // hidden width
 constexpr int ROWS = 64;                        // points per consumer warpgroup
@@ -60,7 +65,7 @@ constexpr int THREADS = 128 * (CONSUMERS + 1);  // + the producer warpgroup
 constexpr int KB = 64;                          // K of one stage: one 128-byte swizzle row
 constexpr int KBLOCKS = W / KB;                 // stages per layer
 constexpr int NSTAGE = 4;                       // ring depth
-constexpr int STAGE_BYTES = W * KB * 2;         // 32 KB
+constexpr uint32_t STAGE_BYTES = W * KB * 2;    // 32 KB
 constexpr int ABLOCK_BYTES = ROWS * KB * 2;     // 8 KB: one K block of an A tile
 constexpr int ATILE_BYTES = ROWS * W * 2;       // 32 KB
 constexpr int HALF = W / 2;                     // output columns of one wgmma (n128)
@@ -89,60 +94,7 @@ struct TcArgs {
   int N, D, film_rows, out_cols, tiles_per_item, n_tiles;
 };
 
-// ------------------------------------------------------------------ PTX helpers
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-// Waits for the phase of `bar` with the given parity to complete. A wait that
-// outlasts ~2^24 polls (seconds) traps: a broken pipeline fails the launch
-// instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done, polls = 0;
-  do {
-    if (++polls == (1u << 24)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("{\n.reg .b64 state;\nmbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
-}
-
-// one bulk copy global -> shared, completion counted in bytes on `bar`
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
-  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-               ::"r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void wg_bar(int id) {  // the 128 threads of one warpgroup
-  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
-}
-
-// generic-proxy shared writes -> visible to wgmma (async proxy)
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// wgmma descriptor of a K-major operand in the 128-byte swizzle: rows of 128 B,
-// 8-row groups 1024 B apart (SBO); the start address steps 32 B per k16 slice.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) | (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (1ull << 62);
-}
+// ------------------------------------------------------------------ wgmma
 
 // acc (+)= A[64 x 16] * B[16 x 128], both from shared memory, K-major
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[HALF / 2], uint64_t da, uint64_t db, int accumulate) {
@@ -324,11 +276,6 @@ __device__ __forceinline__ uint4 sft8(uint4 h, uint4 al, uint4 lb) {
   return out;
 }
 
-struct Ring {
-  uint32_t smem, full, empty;  // stage buffers; full and empty mbarriers
-  uint32_t s;                  // stages consumed so far
-};
-
 // One 256 -> 256 layer on the A tile: per output half, 16 wgmma over the
 // layer's KBLOCKS ring stages, then (view layer) the dirs part on FMA, then the
 // FiLM epilogue into hp. The second half releases each stage once the wgmmas
@@ -376,31 +323,13 @@ __global__ void __launch_bounds__(THREADS, 1) siren_field_tc_kernel(const TcArgs
   const int wg = threadIdx.x >> 7;
   const int per_tile = TEX ? KBLOCKS : a.D * KBLOCKS;  // ring stages per tile
 
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < NSTAGE; ++i) {
-      mbar_init(ring.full + 8 * i, 1);
-      mbar_init(ring.empty + 8 * i, CONSUMERS * 4);  // one arrival per consumer warp
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
+  ring_init(ring, NSTAGE, CONSUMERS * 4);  // one arrival per consumer warp
   __syncthreads();
 
   if (wg == CONSUMERS) {
     // ---- producer: one thread keeps the weight ring full
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
-    if (threadIdx.x == CONSUMERS * 128) {
-      const int backbone = per_tile - KBLOCKS;
-      uint32_t s = 0;
-      for (int t = blockIdx.x; t < a.n_tiles; t += gridDim.x) {
-        for (int i = 0; i < per_tile; ++i, ++s) {
-          const uint32_t stage = s % NSTAGE;
-          mbar_wait(ring.empty + 8 * stage, ((s / NSTAGE) & 1) ^ 1);
-          const __nv_bfloat16* src = i < backbone ? a.wring + (size_t)i * W * KB : a.wvring + (size_t)(i - backbone) * W * KB;
-          mbar_expect_tx(ring.full + 8 * stage, STAGE_BYTES);
-          bulk_load(ring.smem + stage * STAGE_BYTES, src, STAGE_BYTES, ring.full + 8 * stage);
-        }
-      }
-    }
+    if (threadIdx.x == CONSUMERS * 128) produce<NSTAGE, STAGE_BYTES>(ring, a.wring, a.wvring, per_tile, KBLOCKS, a.n_tiles);
   } else {
     // ---- consumers: warpgroup wg owns rows wg*64 .. wg*64+63 of every tile
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));

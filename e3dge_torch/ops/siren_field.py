@@ -4,10 +4,12 @@ version, and the host helpers.
 Counterpart of `e3dge_tpu/ops/pallas/siren_kernel.py` (`_siren_kernel`,
 launched by `siren_query_fused`; host helpers `pack_siren_params` and
 `film_vectors`). The kernels are `e3dge_torch/csrc/siren_field_sm90.cu`
-(`serving`: wgmma on bf16 operands fed by a bulk-copy ring of weight stages)
-and `e3dge_torch/csrc/siren_field.cu` (`highest`: scalar f32 FMA), built with
-nvcc for sm_90a at first use into one library in `e3dge_torch/_build/`
-(rebuilt when a source's hash changes) and bound through ctypes.
+(`serving`: wgmma on bf16 operands) and `e3dge_torch/csrc/siren_field.cu`
+(`highest`: wgmma on TF32 operands, each f32 product as three TF32 products
+of pre-split hi and lo parts), both fed by a bulk-copy ring of weight stages
+(`csrc/sm90_ring.cuh`), built with nvcc for sm_90a at first use into one
+library in `e3dge_torch/_build/` (rebuilt when a source's hash changes) and
+bound through ctypes.
 
 Two entries, both the port of the one TPU kernel:
   * `siren_field_full` — the whole field over [B, N] points in one launch, with
@@ -25,7 +27,8 @@ device each entry refuses, before it runs, an operand that requires grad while
 grad mode is on: a caller that needs gradients evaluates the eager twin
 (`models/siren.py`), which is the renderer's rule (`VolumeFeatureRenderer._field`).
 
-Precision follows the field dtype: "highest" (f32 operands, f32 FMA, `sin`; io
+Precision follows the field dtype: "highest" (f32 operands and accumulation,
+the 256x256 products as 3xTF32 split products to f32 accuracy, `sin`; io
 tensors f32) for `field_dtype="float32"`, "serving" (bf16-rounded matmul
 operands, f32 accumulation, `fast_sin`; raw_h/alpha/lbeta/feat in bf16) for
 `field_dtype="bfloat16"`.
@@ -57,9 +60,24 @@ KERNEL_WIDTH = 256  # the hidden width the kernels are built for
 # 128-byte row per output), 32 KB, in the 128-byte swizzle wgmma reads.
 STAGE_K = 64
 SWIZZLE_CHUNKS = 8  # 16-byte chunks of a 128-byte row
+# The highest kernel's weight stages, 32 KB each in the same swizzle, one
+# 128-byte row (32 f32 bit patterns) per output: per layer, W/16 stages whose
+# rows hold 16 inputs' TF32 hi parts then their lo parts (the pass of small
+# products), then W/32 stages whose rows hold 32 inputs' hi parts (the pass of
+# big products). Within each block of 8 inputs a row holds input TF32_PERM[k]
+# at place k: the wgmma A fragment of a thread (logical k = q, q+4) then reads
+# the columns 2q, 2q+1 its accumulator holds.
+TF32_STAGE_K = 16
+TF32_PERM = (0, 2, 4, 6, 1, 3, 5, 7)
+
+
+def tf32_layer_stages(width: int) -> int:
+    """Ring stages per layer of the highest kernel at a width."""
+    return width // TF32_STAGE_K + width // (2 * TF32_STAGE_K)
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = (_PKG / "csrc" / "siren_field_sm90.cu", _PKG / "csrc" / "siren_field.cu")
+HEADERS = (_PKG / "csrc" / "sm90_ring.cuh",)  # included by both sources
 BUILD_DIR = _PKG / "_build"
 
 # launches of each kernel entry; the wrappers add one per launch and nowhere else
@@ -68,12 +86,14 @@ launch_counts = {"siren_field_full": 0, "siren_field_tex": 0}
 # How far the kernel may stray from its plain version on the same inputs:
 # (max abs, mean abs) per precision and kind of output. "hidden" outputs are
 # feat and raw_h (sines, in [-1, 1]); "head" outputs are rgb and sdf (~0.05
-# under the SIREN init). highest: the same f32 math in another summation order,
+# under the SIREN init). highest: f32-level products (three TF32 products per
+# f32 product) summed in another order by the tensor cores' accumulator,
 # whose last-bit differences the sin(30 x) layers amplify (H100 readings: max
-# 2.1e-5). serving: where another summation order flips one bf16 rounding, the
-# activation moves one bf16 step (2^-8 near 1) and the next layer's FiLM gain
-# (~30) amplifies it, so single hidden values stray by up to ~0.04 while their
-# mean stays ~3e-4, and the heads by up to ~2e-3, mean ~2e-5 (H100 readings).
+# 3.8e-5 hidden, 1.3e-6 head, at B=4 x 98,304 points). serving: where another
+# summation order flips one bf16 rounding, the activation moves one bf16 step
+# (2^-8 near 1) and the next layer's FiLM gain (~30) amplifies it, so single
+# hidden values stray by up to ~0.04 while their mean stays ~3e-4, and the
+# heads by up to ~2e-3, mean ~2e-5 (H100 readings).
 # Each limit sits well above its readings and well below what a wrong or
 # zeroed output gives (a zeroed head: mean ~0.04; a zeroed hidden: ~0.6).
 KERNEL_TOLERANCE = {
@@ -106,31 +126,68 @@ def io_dtype(precision: str) -> torch.dtype:
 # ----------------------------------------------------------------- host helpers
 
 
+def _swizzle128(rows: torch.Tensor) -> torch.Tensor:
+    """[out, stages, 128-byte row] -> [stages, out, row] with, within row n,
+    the 16-byte chunk c at chunk c ^ (n % 8): the 128-byte swizzle, K-major."""
+    n, nst, per_row = rows.shape
+    x = rows.reshape(n, nst, SWIZZLE_CHUNKS, -1).transpose(0, 1)
+    place = torch.arange(n, device=rows.device)[:, None] % SWIZZLE_CHUNKS
+    src = torch.arange(SWIZZLE_CHUNKS, device=rows.device)[None, :] ^ place  # chunk stored at each place
+    x = x.gather(2, src[None, :, :, None].expand(x.shape))
+    return x.reshape(nst, n, per_row).contiguous()
+
+
 def sw128_stages(weight: torch.Tensor) -> torch.Tensor:
     """An nn.Linear weight [out, in] -> its wgmma B-operand stages [in/64, out,
     64] in bf16: stage s holds inputs 64s .. 64s+63, one 128-byte row per
-    output (K-major), and within row n the 16-byte chunk c sits at chunk
-    c ^ (n % 8) — the 128-byte swizzle. Each stage is one contiguous 32 KB
-    (for out = 256) bulk copy into shared memory."""
+    output (K-major), in the 128-byte swizzle (`_swizzle128`). Each stage is
+    one contiguous 32 KB (for out = 256) bulk copy into shared memory."""
     n, k = weight.shape
     if k % STAGE_K:
         raise ValueError(f"input width {k} is not a multiple of {STAGE_K}")
-    x = weight.detach().to(torch.bfloat16).reshape(n, k // STAGE_K, SWIZZLE_CHUNKS, -1).transpose(0, 1)
-    rows = torch.arange(n, device=weight.device)[:, None] % SWIZZLE_CHUNKS
-    src = torch.arange(SWIZZLE_CHUNKS, device=weight.device)[None, :] ^ rows  # chunk stored at each place
-    x = x.gather(2, src[None, :, :, None].expand(x.shape))
-    return x.reshape(k // STAGE_K, n, STAGE_K).contiguous()
+    return _swizzle128(weight.detach().to(torch.bfloat16).reshape(n, k // STAGE_K, STAGE_K))
+
+
+def rna_tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> the nearest TF32 value (10 mantissa bits; ties away from zero),
+    as f32 with the low 13 bits zero: `cvt.rna.tf32.f32` for finite x."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) with hi = rna(x), lo = rna(x - hi): hi + lo carries x to
+    ~2^-22 relative, and hi.hi + lo.hi + hi.lo is an f32-level product."""
+    hi = rna_tf32(x)
+    return hi, rna_tf32(x.float() - hi)
+
+
+def tf32_stages(weight: torch.Tensor) -> torch.Tensor:
+    """An nn.Linear weight [out, in] -> the highest kernel's B-operand stages
+    [in/16 + in/32, out, 32] of f32 bit patterns (`tf32_split` parts, each
+    8-input block in TF32_PERM order), one 128-byte row per output in the
+    128-byte swizzle (`_swizzle128`): stage s < in/16 holds the hi parts of
+    inputs 16s .. 16s+15 then their lo parts; stage in/16 + t the hi parts of
+    inputs 32t .. 32t+31. Each stage is one 32 KB (for out = 256) bulk copy."""
+    n, k = weight.shape
+    if k % (2 * TF32_STAGE_K):
+        raise ValueError(f"input width {k} is not a multiple of {2 * TF32_STAGE_K}")
+    perm = torch.tensor(TF32_PERM, device=weight.device)
+    hi, lo = tf32_split(weight.detach().float().reshape(n, k // 8, 8)[:, :, perm].reshape(n, k))
+    small = torch.cat([hi.reshape(n, -1, TF32_STAGE_K), lo.reshape(n, -1, TF32_STAGE_K)], dim=2)
+    return torch.cat([_swizzle128(small), _swizzle128(hi.reshape(n, -1, 2 * TF32_STAGE_K))])
 
 
 def pack_siren_params(params: Mapping[str, torch.Tensor], depth: int, precision: str) -> dict:
     """SirenGenerator parameters (its state_dict names: `pts_linears.{i}.weight`,
     `views_linears.weight`, `rgb_linear.weight`, ...) -> the kernels' operand
     pack. Matmul weights are transposed to input-major [in, out] (rgb stays
-    [3, W]) in the precision's io dtype, which the plain version and the
-    `highest` kernel read; biases stay f32. In `serving`, where the width is a
-    multiple of 64, the pack also holds the tensor-core kernel's weight stages
-    (`sw128_stages`): `wring` [D-1, W/64, W, 64] for layers 1..D-1 and
-    `wvring` [W/64, W, 64] for the view layer's h part."""
+    [3, W]) in the precision's io dtype, which the plain version reads;
+    biases stay f32. Where the width allows, the pack
+    also holds the kernel's weight stages: `wring` for layers 1..D-1 and
+    `wvring` for the view layer's h part; in `serving` bf16 `sw128_stages`
+    ([D-1, W/64, W, 64], [W/64, W, 64]), in `highest` f32 `tf32_stages`
+    ([D-1, S, W, 32], [S, W, 32], S = `tf32_layer_stages(W)`)."""
     dt = io_dtype(precision)
     p = {k: v.detach() for k, v in params.items()}
     width = p["pts_linears.0.weight"].shape[0]
@@ -150,9 +207,10 @@ def pack_siren_params(params: Mapping[str, torch.Tensor], depth: int, precision:
         "wrgb": w(p["rgb_linear.weight"]),                                         # [3, W]
         "bheads": torch.cat([p["rgb_linear.bias"], p["sigma_linear.bias"]]).float().contiguous(),
     }
-    if precision == "serving" and width % STAGE_K == 0:
-        pack["wring"] = torch.stack([sw128_stages(p[f"pts_linears.{i}.weight"]) for i in range(1, depth)])
-        pack["wvring"] = sw128_stages(wv[:, :width])
+    stages, k = (sw128_stages, STAGE_K) if precision == "serving" else (tf32_stages, 2 * TF32_STAGE_K)
+    if width % k == 0:
+        pack["wring"] = torch.stack([stages(p[f"pts_linears.{i}.weight"]) for i in range(1, depth)])
+        pack["wvring"] = stages(wv[:, :width])
     return pack
 
 
@@ -265,9 +323,9 @@ def nvcc_path() -> str:
 
 def build_library() -> tuple[Path, str]:
     """Compile csrc/*.cu for sm_90a into one library in _build/ unless one built
-    from the same source bytes is there: one nvcc per source, all started
-    together, then a link. Returns (library path, compiler log)."""
-    digest = hashlib.sha256(b"".join(src.read_bytes() for src in SOURCES)).hexdigest()[:16]
+    from the same source and header bytes is there: one nvcc per source, all
+    started together, then a link. Returns (library path, compiler log)."""
+    digest = hashlib.sha256(b"".join(src.read_bytes() for src in (*SOURCES, *HEADERS))).hexdigest()[:16]
     lib = BUILD_DIR / f"libsiren_field_{digest}.so"
     if lib.exists():
         return lib, ""
@@ -330,10 +388,9 @@ def _check(name: str, t: torch.Tensor, shape: tuple, dtype: torch.dtype, device:
 def _check_pack(pack: dict, depth: int, width: int, precision: str, device, tex: bool = False) -> None:
     """The pack entries the precision's kernel reads (`tex`: the texture entry's)."""
     f32, dt = torch.float32, io_dtype(precision)
-    if precision == "serving":
-        _check("wvring", pack["wvring"], (width // STAGE_K, width, STAGE_K), dt, device)
-    else:
-        _check("wvht", pack["wvht"], (width, width), dt, device)
+    stage = (width // STAGE_K, width, STAGE_K) if precision == "serving" else \
+        (tf32_layer_stages(width), width, 2 * TF32_STAGE_K)
+    _check("wvring", pack["wvring"], stage, dt, device)
     _check("wvdt", pack["wvdt"], (3, width), dt, device)
     _check("bv", pack["bv"], (width,), f32, device)
     _check("wrgb", pack["wrgb"], (3, width), dt, device)
@@ -343,10 +400,7 @@ def _check_pack(pack: dict, depth: int, width: int, precision: str, device, tex:
     _check("w0t", pack["w0t"], (3, width), dt, device)
     _check("bst", pack["bst"], (depth, width), f32, device)
     _check("wsig", pack["wsig"], (width,), dt, device)
-    if precision == "serving":
-        _check("wring", pack["wring"], (depth - 1, width // STAGE_K, width, STAGE_K), dt, device)
-    else:
-        _check("wst", pack["wst"], (depth - 1, width, width), dt, device)
+    _check("wring", pack["wring"], (depth - 1, *stage), dt, device)
 
 
 def _refuse_grad(entry: str, tensors, pack: dict) -> None:
@@ -416,15 +470,11 @@ def siren_field_full(
     rgb_sdf = torch.empty(b, n, 4, device=device, dtype=f32)
     raw_h = torch.empty(b, n, width, device=device, dtype=dt) if return_raw_h else None
     lib = _library()
-    # serving: the tensor-core kernel reads the swizzled stages; highest: the
-    # scalar kernel reads the transposed f32 weights (same argument slots)
-    serving = precision == "serving"
-    wmid, wview = ("wring", "wvring") if serving else ("wst", "wvht")
-    fn = lib.siren_field_full_sm90 if serving else lib.siren_field_full
+    fn = lib.siren_field_full_sm90 if precision == "serving" else lib.siren_field_full
     with torch.cuda.device(device):
         err = fn(
-            _ptr(pts), _ptr(dirs), _ptr(pack["w0t"]), _ptr(pack[wmid]), _ptr(pack["bst"]),
-            _ptr(pack[wview]), _ptr(pack["wvdt"]), _ptr(pack["bv"]), _ptr(pack["wsig"]),
+            _ptr(pts), _ptr(dirs), _ptr(pack["w0t"]), _ptr(pack["wring"]), _ptr(pack["bst"]),
+            _ptr(pack["wvring"]), _ptr(pack["wvdt"]), _ptr(pack["bv"]), _ptr(pack["wsig"]),
             _ptr(pack["wrgb"]), _ptr(pack["bheads"]), _ptr(gamma), _ptr(beta),
             _ptr(alpha), _ptr(lbeta), _ptr(feat), _ptr(rgb_sdf), _ptr(raw_h),
             b, n, depth, torch.cuda.current_stream(device).cuda_stream,
@@ -478,11 +528,10 @@ def siren_field_tex(
     feat = torch.empty(b, n, width, device=device, dtype=dt)
     rgb = torch.empty(b, n, 3, device=device, dtype=f32)
     lib = _library()
-    serving = precision == "serving"
-    fn = lib.siren_field_tex_sm90 if serving else lib.siren_field_tex
+    fn = lib.siren_field_tex_sm90 if precision == "serving" else lib.siren_field_tex
     with torch.cuda.device(device):
         err = fn(
-            _ptr(raw_h), _ptr(dirs), _ptr(pack["wvring" if serving else "wvht"]), _ptr(pack["wvdt"]),
+            _ptr(raw_h), _ptr(dirs), _ptr(pack["wvring"]), _ptr(pack["wvdt"]),
             _ptr(pack["bv"]), _ptr(pack["wrgb"]), _ptr(pack["bheads"]), _ptr(gamma_v), _ptr(beta_v),
             _ptr(alpha), _ptr(lbeta), _ptr(feat), _ptr(rgb),
             b, n, torch.cuda.current_stream(device).cuda_stream,

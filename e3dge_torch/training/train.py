@@ -57,6 +57,9 @@ STAGE2_LAMBDAS = {
     "2.2": dict(l2_lambda=1.0, lpips_lambda=1.0, id_lambda=0.1, res_lambda=1.0),
 }
 STAGE2_MODULES = ("encoder", "local", "grid_align", "fuse_sft_block")
+# mapping samples averaged for the mean latents, as the JAX trainer
+# (scripts/train.py:231, and again on resume at :424)
+MEAN_LATENT_SAMPLES = 1000
 CKPT_MODULES = (*STAGE2_MODULES, "volume_discriminator")
 
 
@@ -151,7 +154,7 @@ def main(argv=None) -> int:
     if args.ckpt:
         load_ckpt(model, args.ckpt)
     gen = torch.Generator(model.device).manual_seed(args.seed)
-    mean_latents = model.mean_latent(10000, gen)
+    mean_latents = model.mean_latent(MEAN_LATENT_SAMPLES, gen)
     lambdas = dict(steps.STAGE1_LAMBDAS if stage1 else STAGE2_LAMBDAS[args.stage])
     for flag, name in LAMBDA_FLAGS.items():
         if getattr(args, flag) is not None:

@@ -187,3 +187,40 @@ def test_stage2_highest_launch_shapes_match_plain(card, entry, raw_h):
             continue
         mx, mean, ok = sf.kernel_errors(g, w, kind, precision)
         assert ok, f"{kind} output: max {mx:.3e} mean {mean:.3e} against {sf.KERNEL_TOLERANCE[precision][kind]}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["sdf_targets", "sdf_grid"])
+def test_sdf_query_shapes_match_plain(card, case):
+    """The f32 kernel at the SDF queries' shapes, with zero view dirs as the
+    renderer passes them: the uniform SDF targets of stages 1 and 2 (B=4 x
+    2,048 points in the box) and the mesh's SDF grid (B=1, the whole
+    64 x 64 x 24 camera frustum, `sdf_grid_points` at the reference view, out
+    to the grid's extent)."""
+    from e3dge_torch.config import RendererConfig
+    from e3dge_torch.models.volume_renderer import VolumeFeatureRenderer
+    from e3dge_torch.render.camera import camera_params_from_angles
+
+    precision = "highest"
+    if case == "sdf_targets":
+        pts, _, pack, gamma, beta, _, _ = _inputs(card, precision, n=2048, sft=False, b=4)
+        args = (pts, torch.zeros_like(pts), pack, gamma, beta)
+    else:
+        torch.manual_seed(0)
+        ren = VolumeFeatureRenderer(RendererConfig()).to(card)
+        zero = torch.zeros(1, device=card)
+        cam = camera_params_from_angles(zero, zero, ren.cfg.out_im_res)
+        grid = ren.sdf_grid_points(cam)
+        styles = 0.3 * torch.randn(1, ren.cfg.depth + 1, ren.cfg.style_dim, device=card)
+        with torch.no_grad():
+            args = ren.field_args(grid, None, styles, precision)
+        assert args[0].shape == (1, 64 * 64 * 24, 3)
+    sf.reset_launch_counts()
+    with torch.no_grad():
+        got = sf.siren_field_full(*args, precision=precision)
+        want = sf.siren_field_reference(*args, precision=precision)
+    torch.cuda.synchronize()
+    assert sf.launch_counts == {"siren_field_full": 1, "siren_field_tex": 0}
+    for g, w, kind in zip(got[:2], want[:2], ("hidden", "head")):
+        mx, mean, ok = sf.kernel_errors(g, w, kind, precision)
+        assert ok, f"{kind} output: max {mx:.3e} mean {mean:.3e} against {sf.KERNEL_TOLERANCE[precision][kind]}"

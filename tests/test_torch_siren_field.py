@@ -228,7 +228,9 @@ def test_serving_pack_weight_stages_unswizzle_bit_for_bit(field):
     for i in range(1, DEPTH):
         assert torch.equal(bits(_unswizzle(pack["wring"][i - 1])), bits(net.pts_linears[i].weight.detach()))
     assert torch.equal(bits(_unswizzle(pack["wvring"])), bits(net.views_linears.weight.detach()[:, :WIDTH]))
-    assert "wring" not in net.pack("highest")  # the f32 kernel reads the transposed weights
+    # the f32 kernel reads its own stages: TF32 hi|lo parts as f32 bit patterns
+    ring = net.pack("highest")["wring"]
+    assert ring.dtype == torch.float32 and ring.shape == (DEPTH - 1, sf.tf32_layer_stages(WIDTH), WIDTH, 32)
 
 
 def test_serving_pack_stage_sizes_and_alignment(field):
@@ -258,3 +260,145 @@ def test_pack_is_cached_and_rebuilt_after_an_inplace_edit(field):
     want = net.pts_linears[1].weight.detach().to(torch.bfloat16).view(torch.int16)
     assert torch.equal(_unswizzle(second["wring"][0]).view(torch.int16), want)
     assert torch.equal(second["wst"][0], net.pts_linears[1].weight.detach().t().to(torch.bfloat16))
+
+
+# ------------------------------------------------- the highest kernel's TF32 pack
+
+
+def _rna_tf32_reference(w: np.ndarray) -> np.ndarray:
+    """Round f32 values to 11 significant bits, ties away from zero, in f64
+    arithmetic (independent of the bit trick in `sf.rna_tf32`)."""
+    m, e = np.frexp(w.astype(np.float64))  # w = m * 2**e, 0.5 <= |m| < 1
+    return (np.sign(m) * np.floor(np.abs(m) * 2.0**11 + 0.5) * 2.0 ** (e - 11)).astype(np.float32)
+
+
+def _tf32_unswizzle(stages: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """[K/16 + K/32, out, 32] stages -> the (hi, lo) [out, K] weights of the
+    small-product stages and the hi [out, K] of the big-product ones, by the
+    byte layout the highest kernel reads: place p of row n of a stage at
+    16-byte chunk (p // 4) ^ (n % 8), element p % 4. In small stage s, place p
+    < 16 holds the hi part of input 16s + 8 * (p // 8) + TF32_PERM[p % 8] and
+    place 16 + p its lo part; in big stage t, place p the hi part of input
+    32t + 8 * (p // 8) + TF32_PERM[p % 8]."""
+    n_out = stages.shape[1]
+    k_in = stages.shape[0] * 32 // 3
+    inv = np.argsort(sf.TF32_PERM)  # place of each input within its 8-block
+
+    def read(first: int, per: int, offset: int) -> torch.Tensor:
+        n, k = np.meshgrid(np.arange(n_out), np.arange(k_in), indexing="ij")
+        p = 8 * (k % per // 8) + inv[k % 8] + offset
+        flat = (first + k // per) * n_out * 32 + n * 32 + ((p // 4) ^ (n % 8)) * 4 + p % 4
+        return stages.reshape(-1)[torch.from_numpy(flat)]
+
+    return read(0, 16, 0), read(0, 16, 16), read(k_in // 16, 32, 0)
+
+
+def test_highest_pack_tf32_stages_unswizzle_bit_for_bit(field):
+    """The stages hold rna(W) (in both passes' stages) and rna(W - rna(W)) bit
+    for bit; every part has
+    its low 13 mantissa bits zero (what the card drops when it reads TF32);
+    hi + lo is W to 2^-21 relative."""
+    net = field["tm"]
+    pack = net.pack("highest")
+    weights = [net.pts_linears[i].weight.detach() for i in range(1, DEPTH)]
+    weights.append(net.views_linears.weight.detach()[:, :WIDTH])
+    for stages, w in zip([*pack["wring"], pack["wvring"]], weights):
+        hi, lo, big_hi = _tf32_unswizzle(stages)
+        want_hi = _rna_tf32_reference(w.numpy())
+        want_lo = _rna_tf32_reference(w.numpy() - want_hi)
+        assert np.array_equal(hi.numpy().view(np.uint32), want_hi.view(np.uint32))
+        assert np.array_equal(big_hi.numpy().view(np.uint32), want_hi.view(np.uint32))
+        assert np.array_equal(lo.numpy().view(np.uint32), want_lo.view(np.uint32))
+        for part in (stages, hi, lo):
+            assert int((part.view(torch.int32) & 0x1FFF).abs().max()) == 0
+        assert float(((hi.double() + lo.double() - w.double()).abs() - 2.0**-21 * w.double().abs()).max()) <= 0
+        assert float(lo.abs().max()) > 0  # the lo parts carry the remainder
+
+
+def test_highest_pack_stage_sizes_and_alignment(field):
+    """One stage = one bulk copy of W rows x 128 bytes (16 hi + 16 lo, or 32
+    hi, f32), contiguous, 16-byte aligned and a whole number of 1024-byte
+    swizzle atoms; W/16 + W/32 stages per layer; widths off the 32-input
+    stage are refused."""
+    pack = field["tm"].pack("highest")
+    ring, vring = pack["wring"], pack["wvring"]
+    per_layer = WIDTH // 16 + WIDTH // 32
+    assert sf.tf32_layer_stages(WIDTH) == per_layer
+    assert ring.shape == (DEPTH - 1, per_layer, WIDTH, 32) and vring.shape == (per_layer, WIDTH, 32)
+    for t in (ring, vring):
+        stage_bytes = t.stride(-3) * t.element_size()
+        assert t.dtype == torch.float32 and t.is_contiguous()
+        assert stage_bytes == WIDTH * 128 and stage_bytes % 1024 == 0 and t.data_ptr() % 16 == 0
+    with pytest.raises(ValueError):
+        sf.tf32_stages(torch.zeros(WIDTH, 24))
+
+
+def test_rna_tf32_rounds_ties_away_from_zero():
+    """Halfway cases go away from zero, as cvt.rna does; others to nearest."""
+    one = np.float32(1.0)
+    ulp = np.float32(2.0**-10)  # TF32 spacing at 1
+    x = np.array([1 + 2.0**-11, -(1 + 2.0**-11), 1 + 2.0**-11 - 2.0**-23, 1 + 3 * 2.0**-11, 0.0], np.float32)
+    want = np.array([one + ulp, -(one + ulp), one, 1 + 2 * ulp, 0.0], np.float32)
+    got = sf.rna_tf32(torch.from_numpy(x)).numpy()
+    assert np.array_equal(got, want)
+    assert np.array_equal(got, _rna_tf32_reference(x))
+
+
+@pytest.fixture
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _tf32_reference(pts, dirs, pack, gamma, beta, split: bool):
+    """`siren_field_reference` in `highest` with every 256x256 product taken as
+    the kernel takes it: split (hi.hi + lo.hi + hi.lo of `sf.tf32_split`
+    parts, summed exactly) or, for the control, single-pass TF32 (hi.hi)."""
+    def mm(a, w):
+        (a_hi, a_lo), (w_hi, w_lo) = sf.tf32_split(a), sf.tf32_split(w)
+        if not split:
+            return (a_hi.double() @ w_hi.double()).float()
+        return ((a_hi.double() + a_lo.double()) @ w_hi.double() + a_hi.double() @ w_lo.double()).float()
+
+    depth = pack["bst"].shape[0]
+    h = torch.sin(gamma[:, 0:1] * (pts @ pack["w0t"] + pack["bst"][0]) + beta[:, 0:1])
+    for i in range(1, depth):
+        h = torch.sin(gamma[:, i : i + 1] * (mm(h, pack["wst"][i - 1]) + pack["bst"][i]) + beta[:, i : i + 1])
+    sdf = h @ pack["wsig"][:, None] + pack["bheads"][3]
+    zv = mm(h, pack["wvht"]) + dirs @ pack["wvdt"] + pack["bv"]
+    feat = torch.sin(gamma[:, depth : depth + 1] * zv + beta[:, depth : depth + 1])
+    rgb = feat @ pack["wrgb"].t() + pack["bheads"][:3]
+    return feat, torch.cat([rgb, sdf], dim=-1), h
+
+
+def test_3xtf32_field_stays_within_half_the_highest_tolerance(one_thread):
+    """At the kernel's width and the stage-2 depth (W=256, D=8; N=8,192 points
+    in the [-1, 1] box, styles 0.3 N(0, 1)), the 3xTF32 field agrees with
+    the plain f32 field within half of KERNEL_TOLERANCE["highest"] on every
+    output; the control, single-pass TF32, falls outside the tolerance."""
+    rng = np.random.RandomState(0)
+    n, depth, width = 8192, 8, 256
+    torch.manual_seed(0)
+    net = TSiren(depth, width, width)
+    pts = torch.from_numpy(rng.uniform(-1, 1, (1, n, 3)).astype(np.float32))
+    dirs = rng.randn(1, n, 3).astype(np.float32)
+    dirs = torch.from_numpy(dirs / np.linalg.norm(dirs, axis=-1, keepdims=True))
+    styles = torch.from_numpy((0.3 * rng.randn(1, depth + 1, width)).astype(np.float32))
+    with torch.no_grad():
+        gamma, beta = net.film_vectors(styles)
+        pack = net.pack("highest")
+        want = sf.siren_field_reference(pts, dirs, pack, gamma, beta, precision="highest", return_raw_h=True)
+        got = _tf32_reference(pts, dirs, pack, gamma, beta, split=True)
+        single = _tf32_reference(pts, dirs, pack, gamma, beta, split=False)
+    names = ("feat", "rgb_sdf", "raw_h")
+    kinds = ("hidden", "head", "hidden")
+    for g, w, kind, name in zip(got, want, kinds, names):
+        mx, mean, _ = sf.kernel_errors(g, w, kind, "highest")
+        print(f"3xTF32 {name}: max {mx:.3g} mean {mean:.3g}")
+        tol_max, tol_mean = sf.KERNEL_TOLERANCE["highest"][kind]
+        assert mx <= tol_max / 2 and mean <= tol_mean / 2, (kind, mx, mean)
+    single_errors = [sf.kernel_errors(g, w, kind, "highest") for g, w, kind in zip(single, want, kinds)]
+    print("single TF32:", ", ".join(f"{n} max {mx:.3g} mean {mean:.3g}" for n, (mx, mean, _) in zip(names, single_errors)))
+    assert not all(ok for _, _, ok in single_errors)

@@ -550,6 +550,27 @@ def test_trainer_entry_point_runs_and_saves_e0(tmp_path):
     assert all(sd[k].shape == want[k].shape for k in want)
 
 
+def test_trainer_mean_latents_use_the_jax_trainers_sample_count(tmp_path, monkeypatch):
+    """The trainer averages as many mapping samples for its mean latents as
+    the JAX trainer (`scripts/train.py`, read from its source)."""
+    import re
+
+    from e3dge_torch.training import train
+
+    src = (REPO / "scripts" / "train.py").read_text()
+    want = {int(n) for n in re.findall(r"jax\.random\.key\(\d+\), (\d+), method=E3DGE\.mean_latent", src)}
+    assert len(want) == 1, want
+    asked = []
+    real = TE3DGE.mean_latent
+
+    def recording(self, n=10000, generator=None):
+        asked.append(n)
+        return real(self, n, generator)
+
+    monkeypatch.setattr(TE3DGE, "mean_latent", recording)
+    assert train.main(["--tiny", "--iters", "0", "--device", "cpu", "--work-dir", str(tmp_path)]) == 0
+    assert asked == [want.pop()]
+
 def test_train_utils_match_jax():
     from e3dge_torch.training import train_utils as tu
     from e3dge_tpu.training import train_utils as ju
