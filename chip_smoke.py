@@ -72,7 +72,25 @@ Phases, each failing loudly (any failure exits non-zero before the last line):
      field kernel's share, the top device kernels; then one cycle loss of a
      reduced config (as phase 7's)
      with every branch on, card vs CPU within phase 7's limits, and a control
-     with the SFT modulations detached outside them.
+     with the SFT modulations detached outside them;
+  9. the eval entry point, `e3dge_torch.eval.main`, at
+     demo_view_synthesis_config's full width (64^2 x 24 field, SIREN 8 x 256,
+     IR-SE-50, 4-stack hourglass, decoder to 1024^2), f32, seeded weights, on
+     5 seeded 256^2 PNGs (written by the port's codec) at batch 2: the field
+     kernel at the eval paths' new launch shapes against its plain version
+     and timed (`highest` B=2 with raw_h, with SFT, B=8 with SFT, the texture
+     pass at B=2; `serving` B=2 with raw_h and its texture pass); then the
+     modes metrics (seeded perceptual nets from .pth files holding a subset
+     of their keys), video (4 views), hdtf, mesh, edit (seeded boundaries),
+     project (5 steps + 2 PTI steps) and metrics from its latents with PTI,
+     and metrics in bf16, each with its field launches asserted, its
+     artifacts checked (existence, shape, finiteness), its scores, wall ms
+     per image or frame and device busy ms of the Runner call (under the
+     profiler), and peak memory; validation's scores card vs CPU at a
+     reduced config within stated tolerances, with a control outside them;
+     then `Runner.render_video_projected_noise` (4 views) and
+     `Runner.render_depth_mesh` (512^2) on phase 4's seeded weights, input
+     and noise, with the host share (marching and rasterizer ms).
 Prints a `kernels` JSON line (with each entry's launches per path, and the
 `highest` entries the training paths launch), the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}.
@@ -88,6 +106,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from collections import defaultdict
 
@@ -533,6 +552,19 @@ def counted(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, dict(sf.launch_counts)
+
+
+def counted_split(fn):
+    """As `counted`, with the same call's launches also split by precision:
+    (fn's result, {entry: n}, {(entry, precision): n})."""
+    from e3dge_torch.ops import siren_field as sf
+
+    out, counts = counted(fn)
+    return out, counts, dict(sf.precision_launch_counts)
+
+
+def split_text(split: dict) -> str:
+    return ", ".join(f"{e}/{p} {n}" for (e, p), n in split.items() if n) or "none"
 
 
 def run_flagship(device):
@@ -1409,6 +1441,390 @@ def st2_card_vs_cpu(device) -> None:
         raise AssertionError("the gradient gate does not see the SFT modulations' gradient")
 
 
+# Phase 9: the eval entry point (python -m e3dge_torch.eval) at the flagship
+# widths of demo_view_synthesis_config, f32, on seeded weights
+EVAL_IMAGES, EVAL_BATCH, EVAL_VIEWS, EVAL_PROJECT_STEPS, EVAL_PTI_STEPS = 5, 2, 4, 5, 2
+# field launches (full, texture) per CLI call, from the modes' call graphs:
+# validation's ceil(5 / 2) batches each render with raw_h and run the texture
+# pass; the video renders the ref view, then the B*V query render and its SFT
+# re-render; each HDTF batch renders the ref view, the query view and the SFT
+# re-render; the mesh renders the ref view and the SDF grid; the edit renders
+# the ref view, the edited view, the query view and the SFT re-render;
+# projection renders its reconstruction (its steps and PTI run the twin), and
+# validation from the latents renders once; each in the call's field
+# precision (highest in f32, serving in bf16), counted per precision
+EVAL_LAUNCHES = {"metrics": (3, 3), "video": (3, 0), "hdtf": (9, 0), "mesh": (2, 0), "edit": (4, 0),
+                 "project": (1, 0), "metrics_projection": (1, 0), "metrics_bf16": (3, 3)}
+# validation's scores, card vs CPU at a reduced config (phase 7's cut of the
+# field and the decoder, the E1 branch whole), B=2, f32 with TF32 off. H100
+# readings: loss_l2 6.4e-6, mae 1.8e-6, ssim 3.0e-7, PSNR 1.3e-5 dB; the
+# same card with the field in bf16 (the serving kernel): 4.0e-3, 1.2e-3,
+# 1.2e-4, 8.1e-3 dB. Each limit sits near the geometric mean of the two, 16
+# to 28 times above the f32 reading and 24 to 40 times below the bf16 one.
+EVAL_TOL = {"loss_l2": 1e-4, "mae": 5e-5, "ssim": 5e-6, "psnr": 3e-4}
+# the Runner method each CLI mode drives, probed for wall and device time
+EVAL_METHODS = {"metrics": ("validation",), "metrics_bf16": ("validation",), "project": ("project_images",),
+                "metrics_projection": ("validation_from_latents",), "video": ("render_video",),
+                "hdtf": ("render_hdtf",), "mesh": ("encode_ref", "latent2surface"), "edit": ("edit_and_render",)}
+
+
+def smooth_images(n: int, size: int, seed: int) -> np.ndarray:
+    """n seeded smooth RGB images [n, size, size, 3] uint8, three
+    low-frequency sinusoids per channel."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:size, 0:size] / size
+    out = np.zeros((n, size, size, 3))
+    for i in range(n):
+        for c in range(3):
+            for _ in range(3):
+                fx, fy, ph, a = rng.uniform(0.5, 3), rng.uniform(0.5, 3), rng.uniform(0, 2 * np.pi), rng.uniform(0.15, 0.3)
+                out[i, :, :, c] += a * np.sin(2 * np.pi * (fx * xx + fy * yy) + ph)
+    return np.clip((out + 1.0) * 127.5, 0, 255).astype(np.uint8)
+
+
+def write_folder(root: str, images: np.ndarray) -> str:
+    from PIL import Image
+
+    os.makedirs(root, exist_ok=True)
+    for i, img in enumerate(images):
+        Image.fromarray(img).save(os.path.join(root, f"{i}.png"))
+    return root
+
+
+@contextlib.contextmanager
+def probed(names, record: list):
+    """While active, each Runner method in `names` is timed on the host
+    clock around a synchronise and profiled (torch.profiler, CUDA activity
+    only): its wall ms, device busy ms, field kernel ms and peak memory go to
+    `record`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from e3dge_torch.runner import Runner
+
+    originals = {n: getattr(Runner, n) for n in names}
+
+    def wrap(name, fn):
+        def call(self, *args, **kwargs):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                out = fn(self, *args, **kwargs)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            busy = field = 0.0
+            for ev in prof.events():
+                if ev.device_type == torch.autograd.DeviceType.CUDA and not getattr(ev, "is_user_annotation", False):
+                    busy += ev.time_range.elapsed_us() / 1e3
+                    field += ev.time_range.elapsed_us() / 1e3 if "siren_field" in ev.name else 0.0
+            if busy <= 0:
+                raise AssertionError(f"the profiler saw no device time in Runner.{name}")
+            record.append({"method": name, "wall_ms": wall, "busy_ms": busy, "field_ms": field,
+                           "peak_gib": peak_gib()})
+            return out
+
+        return call
+
+    for n, fn in originals.items():
+        setattr(Runner, n, wrap(n, fn))
+    try:
+        yield
+    finally:
+        for n, fn in originals.items():
+            setattr(Runner, n, fn)
+
+
+def finite_array(path: str, shape: tuple) -> np.ndarray:
+    a = np.load(path)
+    if a.shape != shape or not np.isfinite(a).all():
+        raise AssertionError(f"{path}: {a.shape} finite={bool(np.isfinite(a).all())}, expected finite {shape}")
+    log(f"  {os.path.basename(path)} {a.shape} finite, range [{a.min():.4f}, {a.max():.4f}], std {a.std():.4f}")
+    if not a.std() > MIN_IMAGE_STD:
+        raise AssertionError(f"{path} is constant")
+    return a
+
+
+def one_video(pattern_dir: str, stem: str) -> str:
+    """The video `stem.*` that `write_video` put in pattern_dir (its suffix
+    follows the writer the machine has: .mp4, .gif or .png)."""
+    hits = [f for f in os.listdir(pattern_dir) if f.split(".")[0] == stem and not f.endswith(".npy")]
+    if len(hits) != 1 or os.path.getsize(os.path.join(pattern_dir, hits[0])) == 0:
+        raise AssertionError(f"expected one non-empty {stem}.* in {pattern_dir}, found {hits}")
+    return os.path.join(pattern_dir, hits[0])
+
+
+def check_scores(scores: dict, n: int, what: str) -> None:
+    bad = {k: v for k, v in scores.items() if isinstance(v, float) and not math.isfinite(v)}
+    if scores.get("num_images") != n or bad:
+        raise AssertionError(f"{what}: {scores}")
+    log(f"  {what} scores: " + ", ".join(f"{k} {v:.5f}" if isinstance(v, float) else f"{k} {v}"
+                                         for k, v in scores.items()))
+
+
+def eval_kernel_check(device) -> dict:
+    """The field kernel at phase 9's new launch shapes against its plain
+    version, timed beside its bound: in `highest`, validation's B=2 render with
+    raw_h and its texture pass, HDTF's and the edit's B=2 SFT re-render, the
+    video's B=8 (2 images x 4 views) SFT re-render; in `serving`, the bf16
+    validation's B=2 render with raw_h and its texture pass."""
+    out = {}
+    with torch.no_grad():
+        for label, batch, sft, precision, raw_h in (
+                ("eval validation render", EVAL_BATCH, False, "highest", True),
+                ("eval HDTF / edit SFT re-render", EVAL_BATCH, True, "highest", False),
+                ("eval video SFT re-render", EVAL_BATCH * EVAL_VIEWS, True, "highest", False),
+                ("eval bf16 validation render", EVAL_BATCH, False, "serving", True)):
+            r = check_and_time_full(label, batch, N_FULL, sft, precision, device, raw_h=raw_h)
+            out[label] = {"entry": "siren_field_full", "precision": precision, "batch": batch, "n": N_FULL,
+                          "sft": sft, "raw_h": raw_h, **r}
+        for label, precision in (("eval validation texture pass", "highest"),
+                                 ("eval bf16 validation texture pass", "serving")):
+            r = check_and_time_tex(label, EVAL_BATCH, N_FULL, precision, device)
+            out[label] = {"entry": "siren_field_tex", "precision": precision, "batch": EVAL_BATCH, "n": N_FULL,
+                          "sft": True, **r}
+    return out
+
+
+def run_eval(device, root: str) -> dict:
+    """Phase 9, first part: every mode of `e3dge_torch.eval.main` on the card
+    at demo_view_synthesis_config, f32 (and metrics once in bf16), on 5
+    seeded 256^2 PNGs at batch 2, with seeded perceptual nets read from .pth
+    files that hold a subset of their keys. Per mode: the field launches
+    (asserted), the artifacts (existence, shape, finiteness), the scores,
+    wall ms per image or frame, device busy ms per call and peak memory.
+    Returns the launch counts by mode, split by precision."""
+    from e3dge_torch import eval as teval
+    from e3dge_torch.config import demo_view_synthesis_config
+    from e3dge_torch.training.perceptual import make_perceptual_fns
+    from PIL import Image
+
+    from e3dge_torch.utils.editing import ATTRS
+
+    cfg = demo_view_synthesis_config()
+    data = write_folder(os.path.join(root, "imgs"), smooth_images(EVAL_IMAGES, cfg.pifu.load_size, SEED))
+    lp, idl = make_perceptual_fns("cpu", seed=SEED + 5)
+    torch.save({k: v for k, v in lp.state_dict().items() if k.startswith("lin")}, os.path.join(root, "lpips.pth"))
+    torch.save({k: v for k, v in idl.facenet.state_dict().items() if not k.startswith("body.")},
+               os.path.join(root, "arcface.pth"))
+    del lp, idl
+    rng = np.random.RandomState(SEED)
+    for attr in ATTRS[:4]:
+        for space, dim in (("renderer", cfg.renderer.style_dim), ("decoder", cfg.decoder.style_dim)):
+            os.makedirs(os.path.join(root, "bounds", f"{space}_{attr}"))
+            np.save(os.path.join(root, "bounds", f"{space}_{attr}", "boundary.npy"),
+                    (rng.randn(1, dim) / np.sqrt(dim)).astype(np.float32))
+    out = os.path.join(root, "out")
+    base = ["--data", data, "--out", out, "--batch", str(EVAL_BATCH)]
+    perceptual = ["--lpips-ckpt", os.path.join(root, "lpips.pth"), "--arcface-ckpt", os.path.join(root, "arcface.pth")]
+    size = cfg.decoder.size
+    runs = (
+        ("metrics", ["--mode", "metrics", *perceptual], EVAL_IMAGES, "image"),
+        ("video", ["--mode", "video", "--views", str(EVAL_VIEWS)], EVAL_BATCH * EVAL_VIEWS, "frame"),
+        ("hdtf", ["--mode", "hdtf", "--max-images", str(EVAL_IMAGES)], EVAL_IMAGES, "frame"),
+        ("mesh", ["--mode", "mesh"], EVAL_BATCH, "mesh"),
+        ("edit", ["--mode", "edit", "--boundaries", os.path.join(root, "bounds")], EVAL_BATCH, "image"),
+        ("project", ["--mode", "project", "--batch", "1", "--max-images", "1", "--project-steps",
+                     str(EVAL_PROJECT_STEPS), "--pti", "--pti-steps", str(EVAL_PTI_STEPS), *perceptual], 1, "image"),
+        ("metrics_projection", ["--mode", "metrics", "--projection-root", os.path.join(out, "projection"), "--pti",
+                                *perceptual], 1, "image"),
+        ("metrics_bf16", ["--mode", "metrics", "--dtype", "bfloat16", *perceptual], EVAL_IMAGES, "image"),
+    )
+    launches, n_scores = {}, 0
+    for mode, args, per, unit in runs:
+        record = []
+        log(f"  [9] python -m e3dge_torch.eval {' '.join(args[:2])} ({mode})")
+        t0 = time.perf_counter()
+        with probed(EVAL_METHODS[mode], record):
+            rc, counts, split = counted_split(lambda: teval.main(base + args))
+        call_s = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"eval {mode} exited {rc}")
+        full, tex = EVAL_LAUNCHES[mode]
+        precision = "serving" if mode == "metrics_bf16" else "highest"
+        log(f"  launch counts over the call: {counts}; by precision: {split_text(split)}")
+        if counts != {"siren_field_full": full, "siren_field_tex": tex} or \
+                split[("siren_field_full", precision)] != full or split[("siren_field_tex", precision)] != tex:
+            raise AssertionError(f"eval {mode} launched {split}, expected {full} + {tex} in {precision}")
+        launches[mode] = split
+        wall, busy = sum(r["wall_ms"] for r in record), sum(r["busy_ms"] for r in record)
+        field = sum(r["field_ms"] for r in record)
+        log(f"  {mode}: the CLI call {call_s:.2f} s (model build and seeding included); "
+            f"{'+'.join(r['method'] for r in record)} {wall:.2f} ms wall under the profiler, "
+            f"{wall / per:.2f} ms per {unit}; device busy {busy:.3f} ms (field kernel {field:.3f} ms), "
+            f"busy share {busy / wall:.3f}; peak memory {max(r['peak_gib'] for r in record):.2f} GiB")
+        if mode.startswith("metrics"):
+            scores = json.load(open(os.path.join(out, "scores.json")))
+            if len(scores) != n_scores + 1:
+                raise AssertionError(f"scores.json holds {len(scores)} entries after {n_scores + 1} metrics runs")
+            n_scores += 1
+            check_scores(scores[-1], per, mode)
+            if mode == "metrics_projection" and scores[-1].get("projection_validation") is not True:
+                raise AssertionError("validation from latents did not mark its scores")
+        elif mode == "video":
+            finite_array(os.path.join(out, "video_frames.npy"), (EVAL_BATCH, EVAL_VIEWS, 3, size, size))
+            for i in range(EVAL_BATCH):
+                log(f"  video file {os.path.basename(one_video(os.path.join(out, 'videos'), str(i)))}")
+        elif mode == "hdtf":
+            finite_array(os.path.join(out, "trajectory_videos", "HDTF_nvs_video.npy"), (EVAL_IMAGES, 3, size, size))
+            log(f"  video file {os.path.basename(one_video(os.path.join(out, 'trajectory_videos'), 'HDTF_nvs_video'))}")
+        elif mode == "mesh":
+            for i in range(EVAL_BATCH):
+                n_v = sum(1 for line in open(os.path.join(out, f"mesh_{i}.obj")) if line.startswith("v "))
+                log(f"  mesh_{i}.obj: {n_v} vertices (seeded weights may give an empty surface)")
+        elif mode == "edit":
+            finite_array(os.path.join(out, "edited.npy"), (EVAL_BATCH, 3, size, size))
+        elif mode == "project":
+            d = os.path.join(out, "projection", "0")
+            lat = np.load(os.path.join(d, "latent_in.npz"))
+            rec = np.asarray(Image.open(os.path.join(d, "rec.png")))
+            tuned = torch.load(os.path.join(d, "pti_g.pt"), weights_only=True)
+            ok = (np.isfinite(lat["renderer"]).all() and np.isfinite(lat["decoder"]).all()
+                  and math.isfinite(float(lat["final_loss"])) and rec.shape == (size, size, 3) and rec.std() > 1
+                  and all(bool(torch.isfinite(v).all()) for v in tuned.values() if v.is_floating_point()))
+            log(f"  projection/0: latents {lat['renderer'].shape} + {lat['decoder'].shape}, final loss "
+                f"{float(lat['final_loss']):.5f}, rec.png {rec.shape} std {rec.std():.2f}, pti_g.pt {len(tuned)} "
+                f"entries {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("the projection's artifacts are missing or not finite")
+        torch.cuda.empty_cache()
+    return launches
+
+
+def eval_reduced_config():
+    """demo_view_synthesis_config cut as phase 7 cuts stage 1: the field at
+    depth 8 and width 256 rendering 32^2, the decoder to 128^2, E0 and the E1
+    branch whole."""
+    from e3dge_torch.config import _with, demo_view_synthesis_config
+
+    return _with(demo_view_synthesis_config(), renderer=dict(out_im_res=32), decoder=dict(size=128, in_res=32),
+                 encoder=dict(n_styles_decoder=6)).validate()
+
+
+def eval_card_vs_cpu(device, root: str) -> None:
+    """Phase 9, second part: `Runner.validation` at `eval_reduced_config`,
+    B=2 over 5 seeded PNGs (a ragged last batch), same weights, f32 with TF32
+    off, on the card and on the CPU (ST1_CPU_THREADS threads): loss_l2, mae,
+    ssim and PSNR within EVAL_TOL. Two controls, each on the card, must fall
+    outside: the field in bf16 (the serving kernel, a lower-precision
+    render), and the last batch's padded row scored too (the folder with its
+    last image repeated as a sixth, the fault the ragged batch's mask guards
+    against)."""
+    from e3dge_torch.config import _with
+    from e3dge_torch.models.e3dge import E3DGE
+    from e3dge_torch.runner import Runner
+    from e3dge_torch.utils.weights import init_weights
+
+    cfg = eval_reduced_config()
+    imgs = smooth_images(EVAL_IMAGES, cfg.pifu.load_size, SEED + 1)
+    folders = {"": write_folder(os.path.join(root, "cmp"), imgs),
+               "padded": write_folder(os.path.join(root, "cmp_padded"), np.concatenate([imgs, imgs[-1:]]))}
+    _, ml = seeded_inputs(cfg, SEED)
+    threads = torch.get_num_threads()
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    controls = ("card, the field in bf16", "card, the padded row scored")
+    scores = {}
+    try:
+        for name, dev, folder, run_cfg in (
+                ("card", device, "", cfg), ("CPU", torch.device("cpu"), "", cfg),
+                (controls[0], device, "", _with(cfg, renderer=dict(field_dtype="bfloat16")).validate()),
+                (controls[1], device, "padded", cfg)):
+            t0 = time.perf_counter()
+            torch.set_num_threads(ST1_CPU_THREADS if dev.type == "cpu" else threads)
+            model = E3DGE(run_cfg, device=dev)
+            init_weights(model, SEED)
+            runner = Runner(model, ml, dev, work_dir=os.path.join(root, f"cmp_{len(scores)}"))
+            scores[name] = runner.validation(folders[folder], batch_size=EVAL_BATCH)
+            log(f"  validation on the {name}: {time.perf_counter() - t0:.1f} s, {scores[name]['num_images']} images; "
+                + ", ".join(f"{k} {scores[name][k]:.8f}" for k in EVAL_TOL))
+            del model, runner
+    finally:
+        torch.set_num_threads(threads)
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    for name in ("card", *controls):
+        gaps = {k: abs(scores[name][k] - scores["CPU"][k]) for k in EVAL_TOL}
+        inside = all(gaps[k] <= EVAL_TOL[k] for k in EVAL_TOL)
+        log(f"  {name} vs CPU: " + ", ".join(f"{k} {gaps[k]:.3e} [tol {EVAL_TOL[k]:g}]" for k in EVAL_TOL)
+            + f": {'inside' if inside else 'outside'} the tolerance")
+        if name == "card" and not inside:
+            raise AssertionError("validation's scores disagree between the card and the CPU")
+        if name != "card" and inside:
+            raise AssertionError(f"the control ({name}) passes the card-vs-CPU gate")
+
+
+def run_host_videos(device, root: str) -> dict:
+    """Phase 9, last part: `Runner.render_video_projected_noise` (4 views) and
+    `Runner.render_depth_mesh` (512^2) at the flagship config on phase 4's
+    seeded weights, input and noise: launch counts, finite frames, wall ms
+    per frame, device busy ms, and the host share (the ms of mesh extraction,
+    marching and welding, and of the rasterizer, against device ms). Returns the launch
+    counts by path, split by precision."""
+    from e3dge_torch.config import flagship_config
+    from e3dge_torch.models.e3dge import E3DGE
+    from e3dge_torch.runner import Runner
+    from e3dge_torch.utils import mesh
+    from e3dge_torch.utils.weights import init_weights
+
+    cfg = flagship_config()
+    model = E3DGE(cfg)
+    init_weights(model, SEED)
+    images, ml, noise = to_device(*seeded_inputs(cfg, SEED), decoder_noise(cfg, 1, SEED), device)
+    runner = Runner(model, ml, device, work_dir=os.path.join(root, "host_videos"))
+    host = defaultdict(float)
+
+    def timed_native(name, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                host[name] += (time.perf_counter() - t0) * 1e3
+        return call
+
+    launches = {}
+    originals = {"extract_mesh": mesh.extract_mesh, "rasterize": mesh.rasterize}
+    for name, fn in originals.items():
+        setattr(mesh, name, timed_native(name, fn))
+    try:
+        for path, method, call, n_frames, expect in (
+                ("projected_noise_video", "render_video_projected_noise",
+                 lambda: runner.render_video_projected_noise(images, n_views=EVAL_VIEWS, noise=noise), EVAL_VIEWS,
+                 {("siren_field_full", "serving"): 1 + EVAL_VIEWS, ("siren_field_full", "highest"): 1}),
+                ("depth_mesh", "render_depth_mesh", lambda: runner.render_depth_mesh(images, image_size=512), 1,
+                 {("siren_field_full", "serving"): 1})):
+            host.clear()
+            record = []
+            with probed((method,), record):
+                frames, counts, split = counted_split(call)
+            log(f"  [9] Runner.{method}: launch counts {counts}; by precision: {split_text(split)}")
+            if split != {k: expect.get(k, 0) for k in split}:
+                raise AssertionError(f"{method} launched {split}, expected {expect}")
+            launches[path] = split
+            frames = torch.as_tensor(frames).float().cpu()
+            shape = (1, EVAL_VIEWS, 3, cfg.decoder.size, cfg.decoder.size) if n_frames > 1 else (1, 512, 512)
+            if path == "depth_mesh":
+                if tuple(frames.shape) != shape or not bool(torch.isfinite(frames).all()) \
+                        or float(frames.min()) < 0 or float(frames.max()) > 1:
+                    raise AssertionError(f"depth-mesh frames {tuple(frames.shape)} not finite in [0, 1]")
+                log(f"  frames {tuple(frames.shape)} in [{float(frames.min()):.4f}, {float(frames.max()):.4f}], "
+                    f"std {float(frames.std()):.4f}")
+            else:
+                check_image(frames, shape, "projected-noise frames")
+            (r,) = record
+            native = host["extract_mesh"] + host["rasterize"]
+            log(f"  {path}: {r['wall_ms']:.2f} ms wall under the profiler, {r['wall_ms'] / n_frames:.2f} ms per frame; "
+                f"device busy {r['busy_ms']:.3f} ms (field kernel {r['field_ms']:.3f} ms); host mesh work "
+                f"{native:.2f} ms (marching + welding {host['extract_mesh']:.2f}, rasterizer {host['rasterize']:.2f}), "
+                f"{native / r['wall_ms']:.3f} of the wall against the device's {r['busy_ms'] / r['wall_ms']:.3f}; "
+                f"peak memory {r['peak_gib']:.2f} GiB")
+    finally:
+        for name, fn in originals.items():
+            setattr(mesh, name, fn)
+    del model, runner
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1461,6 +1877,18 @@ def main() -> int:
     st2 = run_stage2(device)
     st2_card_vs_cpu(device)
 
+    log("[9] the eval entry point, demo_view_synthesis_config at full width")
+    with tempfile.TemporaryDirectory(prefix="e3dge_eval_") as root:
+        ev_kernel = eval_kernel_check(device)
+        ev = run_eval(device, root)
+        eval_card_vs_cpu(device, root)
+        ev.update(run_host_videos(device, root))
+    ev_shapes = [{"label": label, **r} for label, r in ev_kernel.items()]
+
+    def eval_launches(entry, precision):
+        """Phase 9's measured launches of one entry in one precision, by path."""
+        return {f"eval_{m}" if m in EVAL_LAUNCHES else m: split[(entry, precision)] for m, split in ev.items()}
+
     kernels = []
     for name in ("siren_field_full", "siren_field_tex"):
         kernels.append({
@@ -1477,6 +1905,8 @@ def main() -> int:
             "library_ms": None,  # no single PyTorch call computes the FiLM-SIREN field
             "launches_by_path": {path: paths[path][name] for path in PATHS},
         })
+        kernels[-1]["launches_by_path"].update(eval_launches(name, "serving"))
+        kernels[-1]["shapes"] = [r for r in ev_shapes if r["entry"] == name and r["precision"] == "serving"]
     # the stage-1 path's kernel: the f32 entry of csrc/siren_field.cu at the
     # sample render's shape; launches over the measured steps (all `highest`)
     st2_shapes = [{"label": label, **r} for label, r in st2["kernel"].items()]
@@ -1487,11 +1917,13 @@ def main() -> int:
         "replaces": "e3dge_tpu/ops/pallas/siren_kernel.py:48",
         "launches": st1["launches"]["siren_field_full"],
         **st1["kernel"],
-        "shapes": st1["kernel"]["shapes"] + [r for r in st2_shapes if r["entry"] == "siren_field_full"],
+        "shapes": st1["kernel"]["shapes"] + [r for r in st2_shapes if r["entry"] == "siren_field_full"]
+        + [r for r in ev_shapes if r["entry"] == "siren_field_full" and r["precision"] == "highest"],
         "library_ms": None,
         "launches_by_path": {"latent2surface": paths["latent2surface"]["siren_field_full"],
                              "stage1_step": st1["per_step"]["siren_field_full"],
-                             "stage2_iteration": st2["per_iter"]["siren_field_full"]},
+                             "stage2_iteration": st2["per_iter"]["siren_field_full"],
+                             **eval_launches("siren_field_full", "highest")},
         "launches_stage2": st2["launches"]["siren_field_full"],
     })
     # the texture entry in f32, on the stage-2 path (the D's fake producer):
@@ -1505,8 +1937,10 @@ def main() -> int:
         "launches": st2["launches"]["siren_field_tex"],
         **{k: tex[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "fma_bound_ms")},
         "library_ms": None,
+        "shapes": [r for r in ev_shapes if r["entry"] == "siren_field_tex" and r["precision"] == "highest"],
         "launches_by_path": {"stage1_step": st1["per_step"]["siren_field_tex"],
-                             "stage2_iteration": st2["per_iter"]["siren_field_tex"]},
+                             "stage2_iteration": st2["per_iter"]["siren_field_tex"],
+                             **eval_launches("siren_field_tex", "highest")},
     })
     log(f"image2image ms per inversion (flagship bf16, B=1): {inv_ms:.4f}")
     print(json.dumps({"kernels": kernels}))

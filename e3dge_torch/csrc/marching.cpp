@@ -1,6 +1,7 @@
 // Marching tetrahedra for the mesh export of the PyTorch port
+// and the z-buffer rasterizer of the depth-mesh and projected-noise videos
 // (e3dge_torch/utils/mesh.py), the port's own copy of the JAX package's
-// e3dge_tpu/native/marching.cpp (march_tetrahedra only).
+// e3dge_tpu/native/marching.cpp.
 //
 // The reference extracts meshes with scikit-image marching cubes on the CPU
 // (project/utils/mesh_utils.py:48-69). Here the SDF grid comes from the field
@@ -10,7 +11,8 @@
 // surface is watertight.
 //
 // C ABI (ctypes): march_tetrahedra(...) returns a triangle soup; the Python
-// side welds the vertices and writes .obj. Built with the host C++ compiler
+// side welds the vertices and writes .obj. rasterize(...) fills a color and
+// a depth image. Built with the host C++ compiler
 // at first use into e3dge_torch/_build/.
 
 #include <cstdint>
@@ -132,6 +134,72 @@ int64_t march_tetrahedra(const float* sdf, int64_t nx, int64_t ny, int64_t nz,
     }
   }
   return ntri;
+}
+
+// ---------------------------------------------------------------------------
+// Z-buffered triangle rasterizer for the noise projection and the depth mesh.
+//
+// The reference renders meshes with pytorch3d: the marching-cubes mesh to
+// re-project a fixed per-vertex noise texture into each view
+// (project/models/stylesdf_model.py:423-457, utils/mesh_utils.py:145-219) and
+// the Phong-shaded depth mesh (trainer.py:2251-2346). Here: screen-space
+// verts + per-vertex scalar -> barycentric-interpolated color and depth
+// images; the port's copy of e3dge_tpu/native/marching.cpp:135-197.
+// e3dge_torch/utils/mesh.py::rasterize_reference is its plain numpy version,
+// equal bit for bit (built with -ffp-contract=off: no fused multiply-adds).
+//
+// verts: [V, 3] (x_pix, y_pix, depth), faces: [F, 3], color: [V]
+// out_color/out_depth: [H, W]; background: color 0, depth 0 (invalid).
+int64_t rasterize(const float* verts, int64_t n_verts, const int32_t* faces,
+                  int64_t n_faces, const float* color, int64_t height,
+                  int64_t width, float* out_color, float* out_depth) {
+  for (int64_t i = 0; i < height * width; ++i) {
+    out_color[i] = 0.f;
+    out_depth[i] = 0.f;
+  }
+  // z-buffer holds nearest depth (smaller = closer)
+  std::vector<float> zbuf((size_t)(height * width), 1e30f);
+
+  for (int64_t f = 0; f < n_faces; ++f) {
+    int32_t i0 = faces[f * 3], i1 = faces[f * 3 + 1], i2 = faces[f * 3 + 2];
+    if (i0 < 0 || i1 < 0 || i2 < 0 || i0 >= n_verts || i1 >= n_verts ||
+        i2 >= n_verts)
+      continue;
+    float x0 = verts[i0 * 3], y0 = verts[i0 * 3 + 1], z0 = verts[i0 * 3 + 2];
+    float x1 = verts[i1 * 3], y1 = verts[i1 * 3 + 1], z1 = verts[i1 * 3 + 2];
+    float x2 = verts[i2 * 3], y2 = verts[i2 * 3 + 1], z2 = verts[i2 * 3 + 2];
+
+    float minx = std::fmin(x0, std::fmin(x1, x2));
+    float maxx = std::fmax(x0, std::fmax(x1, x2));
+    float miny = std::fmin(y0, std::fmin(y1, y2));
+    float maxy = std::fmax(y0, std::fmax(y1, y2));
+    int64_t px0 = std::max<int64_t>(0, (int64_t)std::floor(minx));
+    int64_t px1 = std::min<int64_t>(width - 1, (int64_t)std::ceil(maxx));
+    int64_t py0 = std::max<int64_t>(0, (int64_t)std::floor(miny));
+    int64_t py1 = std::min<int64_t>(height - 1, (int64_t)std::ceil(maxy));
+    if (px0 > px1 || py0 > py1) continue;
+
+    float denom = (y1 - y2) * (x0 - x2) + (x2 - x1) * (y0 - y2);
+    if (std::fabs(denom) < 1e-12f) continue;
+
+    for (int64_t py = py0; py <= py1; ++py) {
+      for (int64_t px = px0; px <= px1; ++px) {
+        float x = px + 0.5f, y = py + 0.5f;
+        float w0 = ((y1 - y2) * (x - x2) + (x2 - x1) * (y - y2)) / denom;
+        float w1 = ((y2 - y0) * (x - x2) + (x0 - x2) * (y - y2)) / denom;
+        float w2 = 1.f - w0 - w1;
+        if (w0 < 0.f || w1 < 0.f || w2 < 0.f) continue;
+        float z = w0 * z0 + w1 * z1 + w2 * z2;
+        size_t idx = (size_t)(py * width + px);
+        if (z < zbuf[idx]) {
+          zbuf[idx] = z;
+          out_depth[idx] = z;
+          out_color[idx] = w0 * color[i0] + w1 * color[i1] + w2 * color[i2];
+        }
+      }
+    }
+  }
+  return 0;
 }
 
 }  // extern "C"

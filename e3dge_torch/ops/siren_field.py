@@ -82,6 +82,8 @@ BUILD_DIR = _PKG / "_build"
 
 # launches of each kernel entry; the wrappers add one per launch and nowhere else
 launch_counts = {"siren_field_full": 0, "siren_field_tex": 0}
+# the same launches split by precision, added to on the same two lines
+precision_launch_counts = {(entry, p): 0 for entry in launch_counts for p in ("serving", "highest")}
 
 # How far the kernel may stray from its plain version on the same inputs:
 # (max abs, mean abs) per precision and kind of output. "hidden" outputs are
@@ -112,8 +114,9 @@ def kernel_errors(got: torch.Tensor, want: torch.Tensor, kind: str, precision: s
 
 
 def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
+    for counts in (launch_counts, precision_launch_counts):
+        for k in counts:
+            counts[k] = 0
 
 
 def io_dtype(precision: str) -> torch.dtype:
@@ -482,6 +485,7 @@ def siren_field_full(
     if err != 0:
         raise RuntimeError(f"siren_field_full launch failed: CUDA error {err}")
     launch_counts["siren_field_full"] += 1
+    precision_launch_counts[("siren_field_full", precision)] += 1
     return feat, rgb_sdf, raw_h
 
 
@@ -539,4 +543,5 @@ def siren_field_tex(
     if err != 0:
         raise RuntimeError(f"siren_field_tex launch failed: CUDA error {err}")
     launch_counts["siren_field_tex"] += 1
+    precision_launch_counts[("siren_field_tex", precision)] += 1
     return feat, rgb

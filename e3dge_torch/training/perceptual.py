@@ -15,6 +15,7 @@ images, never into them.
 from __future__ import annotations
 
 import math
+import os
 from typing import Mapping, Sequence
 
 import torch
@@ -168,23 +169,52 @@ def seed_perceptual(net: nn.Module, generator: torch.Generator) -> None:
             mod.weight.fill_(0.25)
 
 
+def load_partial(net: nn.Module, sd: Mapping[str, torch.Tensor]) -> list[str]:
+    """Fill `net` from `sd` as the JAX package ingests a perceptual checkpoint
+    (`e3dge_tpu/utils/torch_ckpt.py::ingest_perceptual` with strict=False):
+    each entry `sd` has is copied in, each entry it lacks keeps its current
+    (seeded) value, keys `net` does not have are ignored, and a shape
+    mismatch raises. Returns the keys left unfilled. (The LPIPS alex `.pth`
+    holds only the linear heads, so a strict load would refuse it.)"""
+    own = net.state_dict()
+    missing = []
+    with torch.no_grad():
+        for k, v in own.items():
+            if k not in sd:
+                missing.append(k)
+                continue
+            src = torch.as_tensor(sd[k])
+            if tuple(src.shape) != tuple(v.shape):
+                raise ValueError(f"shape mismatch at {k}: {tuple(src.shape)} in the checkpoint, {tuple(v.shape)} here")
+            v.copy_(src)
+    return missing
+
+
 def make_perceptual_fns(
     device: str | torch.device = "cpu",
     lpips_state_dict: Mapping[str, torch.Tensor] | None = None,
     arcface_state_dict: Mapping[str, torch.Tensor] | None = None,
     seed: int = 0,
+    lpips_ckpt: str | os.PathLike | None = None,
+    arcface_ckpt: str | os.PathLike | None = None,
 ):
     """(lpips_fn, id_fn): the `LPIPS` and `IDLoss` nets, frozen in eval mode
-    on `device`, each loaded strictly from its state dict (the reference
-    LPIPS keys; model_ir_se50.pth's Backbone keys) or else seeded from `seed`
-    (LPIPS) and `seed + 1` (ArcFace). lpips_fn(pred, gt, per_sample=False) ->
-    loss; id_fn(pred, gt, per_sample=False) -> (loss, similarity)."""
+    on `device`, seeded from `seed` (LPIPS) and `seed + 1` (ArcFace), then
+    filled from a state dict or a `.pth` path (the reference LPIPS keys;
+    model_ir_se50.pth's Backbone keys, read with torch.load(weights_only=True))
+    by `load_partial`; the count of entries left at their seeded values is
+    printed. lpips_fn(pred, gt, per_sample=False) -> loss;
+    id_fn(pred, gt, per_sample=False) -> (loss, similarity)."""
     lp, idl = LPIPS(), IDLoss()
-    for net, sd, s in ((lp, lpips_state_dict, seed), (idl.facenet, arcface_state_dict, seed + 1)):
-        if sd is None:
-            seed_perceptual(net, torch.Generator().manual_seed(s))
-        else:
-            net.load_state_dict(sd, strict=True)
+    for name, net, sd, path, s in (("LPIPS", lp, lpips_state_dict, lpips_ckpt, seed),
+                                   ("ArcFace", idl.facenet, arcface_state_dict, arcface_ckpt, seed + 1)):
+        seed_perceptual(net, torch.Generator().manual_seed(s))
+        if path is not None:
+            sd = torch.load(path, map_location="cpu", weights_only=True)
+        if sd is not None:
+            missing = load_partial(net, sd)
+            print(f"{name}: {len(net.state_dict()) - len(missing)} entries loaded from "
+                  f"{path or 'a state dict'}, {len(missing)} left at their seeded values", flush=True)
     for net in (lp, idl):
         net.to(device).eval().requires_grad_(False)
     return lp, idl

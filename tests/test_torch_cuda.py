@@ -63,6 +63,7 @@ def test_full_and_texture_entries_match_plain(card, precision, sft, b, n):
         want_t = sf.siren_field_tex_reference(*tex_args, precision=precision)
     torch.cuda.synchronize()
     assert sf.launch_counts == {"siren_field_full": 1, "siren_field_tex": 1}
+    assert sf.precision_launch_counts == {(e, p): int(p == precision) for e, p in sf.precision_launch_counts}
     for g, w, kind in zip(got + got_t, want + want_t, KINDS):
         assert g.dtype == w.dtype and g.shape == w.shape
         mx, mean, ok = sf.kernel_errors(g, w, kind, precision)
@@ -224,3 +225,51 @@ def test_sdf_query_shapes_match_plain(card, case):
     for g, w, kind in zip(got[:2], want[:2], ("hidden", "head")):
         mx, mean, ok = sf.kernel_errors(g, w, kind, precision)
         assert ok, f"{kind} output: max {mx:.3e} mean {mean:.3e} against {sf.KERNEL_TOLERANCE[precision][kind]}"
+
+
+@pytest.mark.cuda
+def test_rasterizer_library_builds_and_matches_its_reference(card):
+    """The host rasterizer that the depth-mesh and projected-noise videos run
+    beside the card: built from csrc/marching.cpp, bit for bit its numpy
+    version."""
+    import numpy as np
+
+    from e3dge_torch.utils import mesh
+
+    rng = np.random.RandomState(0)
+    verts = np.concatenate([rng.uniform(-3, 67, (200, 2)), rng.uniform(0.5, 2, (200, 1))], 1).astype(np.float32)
+    faces = rng.randint(0, 200, (300, 3)).astype(np.int32)
+    color = rng.randn(200).astype(np.float32)
+    got, want = mesh.rasterize(verts, faces, color, 48, 64), mesh.rasterize_reference(verts, faces, color, 48, 64)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert (got[1] > 0).mean() > 0.3
+
+
+@pytest.mark.cuda
+def test_eval_cli_metrics_on_the_card(card, tmp_path, monkeypatch):
+    """`python -m e3dge_torch.eval --tiny --mode metrics` on its default
+    device, the card: 5 PNGs at batch 2 give finite scores of 5 images, and
+    the field kernel launches (1 + 1 per batch). The kernel is built for
+    width 256, so the tiny config's field (and the decoder's input) is
+    widened to it."""
+    import json
+
+    import numpy as np
+
+    from e3dge_torch import config as tc
+    from e3dge_torch import eval as teval
+    from PIL import Image
+
+    monkeypatch.setattr(teval, "make_config", lambda args: tc._with(
+        tc.tiny_full_config(), renderer=dict(width=256), decoder=dict(in_channels=256)).validate())
+
+    rng = np.random.RandomState(0)
+    (tmp_path / "imgs").mkdir()
+    for i in range(5):
+        Image.fromarray((rng.rand(32, 32, 3) * 255).astype(np.uint8)).save(tmp_path / "imgs" / f"{i}.png")
+    sf.reset_launch_counts()
+    assert teval.main(["--tiny", "--data", str(tmp_path / "imgs"), "--out", str(tmp_path / "out"), "--batch", "2"]) == 0
+    assert sf.launch_counts == {"siren_field_full": 3, "siren_field_tex": 3}
+    (scores,) = json.loads((tmp_path / "out" / "scores.json").read_text())
+    assert scores["num_images"] == 5 and all(np.isfinite(v) for v in scores.values())

@@ -152,8 +152,9 @@ def _imports(path: Path) -> set[str]:
 def test_port_and_chip_smoke_import_no_jax():
     files = sorted((REPO / "e3dge_torch").rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "field_variants.py"]
     assert len(files) > 25
-    for name in ("runner.py", "utils/mesh.py", "utils/editing.py", "utils/checkpoint.py", "training/losses.py",
-                 "training/perceptual.py", "training/steps.py", "training/train_utils.py", "training/train.py"):
+    for name in ("runner.py", "eval.py", "utils/mesh.py", "utils/editing.py", "utils/checkpoint.py",
+                 "utils/image_io.py", "training/losses.py", "training/perceptual.py", "training/steps.py",
+                 "training/train_utils.py", "training/train.py", "training/data.py", "training/projector.py"):
         assert REPO / "e3dge_torch" / name in files
     banned = ("jax", "flax", "e3dge_tpu", "__graft_entry__")
     for path in files:
