@@ -90,7 +90,24 @@ Phases, each failing loudly (any failure exits non-zero before the last line):
      reduced config within stated tolerances, with a control outside them;
      then `Runner.render_video_projected_noise` (4 views) and
      `Runner.render_depth_mesh` (512^2) on phase 4's seeded weights, input
-     and noise, with the host share (marching and rasterizer ms).
+     and noise, with the host share (marching and rasterizer ms);
+ 10. the trainer CLI, `e3dge_torch.training.train.main`, at phase 8's
+     configuration and recipe (stage2_config, B=4, train_stage2.2.sh's
+     switches): a. 4 iterations with --data (8 seeded 256^2 PNGs),
+     --val-data, panels, validation and checkpoints every 2 or 4 iterations
+     and partial perceptual checkpoints: the artifacts, each iteration's
+     field launches (phase 8's), the D's reals equal to the folder's
+     batches, ms per iteration beside phase 8's, a batch load, each
+     checkpoint save (ms, MB), the validation call and a panel, device busy
+     share and peak memory; b. --resume with both D states: two
+     uninterrupted runs give the card's spread, a resumed run stays within
+     10x of it (metrics and final state), a resume that drops the optimizer
+     state falls outside; c. `e3dge_torch.eval.main --mode now` at
+     demo_view_synthesis_config, f32, batch 2, on a seeded NoW layout (4
+     JPEGs of 1024x768, scans of 62,500 points): the NoW SDF grid's launch
+     shape against the plain field, the launches per batch, a mesh per
+     image, finite scores, ms per image in three parts, and
+     `now_scan_error` card against CPU with a moved-mesh control.
 Prints a `kernels` JSON line (with each entry's launches per path, and the
 `highest` entries the training paths launch), the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}.
@@ -104,6 +121,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1348,7 +1366,8 @@ def run_stage2(device) -> dict:
     del model, state, lpips_fn, id_fn, d, d_state, sd0, frozen_nets
     torch.cuda.empty_cache()
     per_iter = {k: ST2_D_LAUNCHES[k] + ST2_E_LAUNCHES[k] for k in ST2_E_LAUNCHES}
-    return {"per_iter": per_iter, "launches": {k: v * ST2_ITERS for k, v in per_iter.items()}, "kernel": kernel}
+    return {"per_iter": per_iter, "launches": {k: v * ST2_ITERS for k, v in per_iter.items()}, "kernel": kernel,
+            "ms": wall_ms}
 
 
 def st2_reduced_config():
@@ -1492,46 +1511,77 @@ def write_folder(root: str, images: np.ndarray) -> str:
 
 
 @contextlib.contextmanager
-def probed(names, record: list):
-    """While active, each Runner method in `names` is timed on the host
-    clock around a synchronise and profiled (torch.profiler, CUDA activity
-    only): its wall ms, device busy ms, field kernel ms and peak memory go to
-    `record`."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from e3dge_torch.runner import Runner
-
-    originals = {n: getattr(Runner, n) for n in names}
-
-    def wrap(name, fn):
-        def call(self, *args, **kwargs):
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                out = fn(self, *args, **kwargs)
-                torch.cuda.synchronize()
-                wall = (time.perf_counter() - t0) * 1e3
-            busy = field = 0.0
-            for ev in prof.events():
-                if ev.device_type == torch.autograd.DeviceType.CUDA and not getattr(ev, "is_user_annotation", False):
-                    busy += ev.time_range.elapsed_us() / 1e3
-                    field += ev.time_range.elapsed_us() / 1e3 if "siren_field" in ev.name else 0.0
-            if busy <= 0:
-                raise AssertionError(f"the profiler saw no device time in Runner.{name}")
-            record.append({"method": name, "wall_ms": wall, "busy_ms": busy, "field_ms": field,
-                           "peak_gib": peak_gib()})
-            return out
-
-        return call
-
-    for n, fn in originals.items():
-        setattr(Runner, n, wrap(n, fn))
+def patched(obj, **fns):
+    """obj's attributes replaced by fns[name](original) while active."""
+    originals = {n: getattr(obj, n) for n in fns}
+    for n, wrap in fns.items():
+        setattr(obj, n, wrap(originals[n]))
     try:
         yield
     finally:
         for n, fn in originals.items():
-            setattr(Runner, n, fn)
+            setattr(obj, n, fn)
+
+
+def host_timed(record: dict, name: str):
+    """A wrapper for `patched`: each call appends (its host-clock ms, the
+    card synchronised at both ends; its field launches by (entry,
+    precision)) to record[name]."""
+    from e3dge_torch.ops import siren_field as sf
+
+    def wrap(fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            before = dict(sf.precision_launch_counts)
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            record[name].append((ms, {k: v - before[k] for k, v in sf.precision_launch_counts.items()
+                                      if v - before[k]}))
+            return out
+        return call
+    return wrap
+
+
+def host_ms(record: dict, name: str) -> float:
+    """The ms of every call `host_timed` recorded under name."""
+    return sum(ms for ms, _ in record[name])
+
+
+def probed(names, record: list):
+    """A `patched` context: while active, each Runner method in `names` is
+    timed on the host clock around a synchronise and profiled
+    (torch.profiler, CUDA activity only): its wall ms, device busy ms, field
+    kernel ms and peak memory go to `record`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from e3dge_torch.runner import Runner
+
+    def wrap(name):
+        def deco(fn):
+            def call(self, *args, **kwargs):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    out = fn(self, *args, **kwargs)
+                    torch.cuda.synchronize()
+                    wall = (time.perf_counter() - t0) * 1e3
+                busy = field = 0.0
+                for ev in prof.events():
+                    if ev.device_type == torch.autograd.DeviceType.CUDA and not getattr(ev, "is_user_annotation", False):
+                        busy += ev.time_range.elapsed_us() / 1e3
+                        field += ev.time_range.elapsed_us() / 1e3 if "siren_field" in ev.name else 0.0
+                if busy <= 0:
+                    raise AssertionError(f"the profiler saw no device time in Runner.{name}")
+                record.append({"method": name, "wall_ms": wall, "busy_ms": busy, "field_ms": field,
+                               "peak_gib": peak_gib()})
+                return out
+            return call
+        return deco
+
+    return patched(Runner, **{n: wrap(n) for n in names})
 
 
 def finite_array(path: str, shape: tuple) -> np.ndarray:
@@ -1585,6 +1635,20 @@ def eval_kernel_check(device) -> dict:
     return out
 
 
+def perceptual_files(root: str) -> list[str]:
+    """Seeded LPIPS and ArcFace .pth files in root holding a subset of their
+    nets' keys (the LPIPS heads; ArcFace without its body), as the released
+    files are read partially; returns the CLI flags that name them."""
+    from e3dge_torch.training.perceptual import make_perceptual_fns
+
+    paths = os.path.join(root, "lpips.pth"), os.path.join(root, "arcface.pth")
+    if not os.path.exists(paths[1]):
+        lp, idl = make_perceptual_fns("cpu", seed=SEED + 5)
+        torch.save({k: v for k, v in lp.state_dict().items() if k.startswith("lin")}, paths[0])
+        torch.save({k: v for k, v in idl.facenet.state_dict().items() if not k.startswith("body.")}, paths[1])
+    return ["--lpips-ckpt", paths[0], "--arcface-ckpt", paths[1]]
+
+
 def run_eval(device, root: str) -> dict:
     """Phase 9, first part: every mode of `e3dge_torch.eval.main` on the card
     at demo_view_synthesis_config, f32 (and metrics once in bf16), on 5
@@ -1595,18 +1659,13 @@ def run_eval(device, root: str) -> dict:
     Returns the launch counts by mode, split by precision."""
     from e3dge_torch import eval as teval
     from e3dge_torch.config import demo_view_synthesis_config
-    from e3dge_torch.training.perceptual import make_perceptual_fns
     from PIL import Image
 
     from e3dge_torch.utils.editing import ATTRS
 
     cfg = demo_view_synthesis_config()
     data = write_folder(os.path.join(root, "imgs"), smooth_images(EVAL_IMAGES, cfg.pifu.load_size, SEED))
-    lp, idl = make_perceptual_fns("cpu", seed=SEED + 5)
-    torch.save({k: v for k, v in lp.state_dict().items() if k.startswith("lin")}, os.path.join(root, "lpips.pth"))
-    torch.save({k: v for k, v in idl.facenet.state_dict().items() if not k.startswith("body.")},
-               os.path.join(root, "arcface.pth"))
-    del lp, idl
+    perceptual = perceptual_files(root)
     rng = np.random.RandomState(SEED)
     for attr in ATTRS[:4]:
         for space, dim in (("renderer", cfg.renderer.style_dim), ("decoder", cfg.decoder.style_dim)):
@@ -1615,7 +1674,6 @@ def run_eval(device, root: str) -> dict:
                     (rng.randn(1, dim) / np.sqrt(dim)).astype(np.float32))
     out = os.path.join(root, "out")
     base = ["--data", data, "--out", out, "--batch", str(EVAL_BATCH)]
-    perceptual = ["--lpips-ckpt", os.path.join(root, "lpips.pth"), "--arcface-ckpt", os.path.join(root, "arcface.pth")]
     size = cfg.decoder.size
     runs = (
         ("metrics", ["--mode", "metrics", *perceptual], EVAL_IMAGES, "image"),
@@ -1770,22 +1828,9 @@ def run_host_videos(device, root: str) -> dict:
     init_weights(model, SEED)
     images, ml, noise = to_device(*seeded_inputs(cfg, SEED), decoder_noise(cfg, 1, SEED), device)
     runner = Runner(model, ml, device, work_dir=os.path.join(root, "host_videos"))
-    host = defaultdict(float)
-
-    def timed_native(name, fn):
-        def call(*args, **kwargs):
-            t0 = time.perf_counter()
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                host[name] += (time.perf_counter() - t0) * 1e3
-        return call
-
+    host = defaultdict(list)
     launches = {}
-    originals = {"extract_mesh": mesh.extract_mesh, "rasterize": mesh.rasterize}
-    for name, fn in originals.items():
-        setattr(mesh, name, timed_native(name, fn))
-    try:
+    with patched(mesh, extract_mesh=host_timed(host, "extract_mesh"), rasterize=host_timed(host, "rasterize")):
         for path, method, call, n_frames, expect in (
                 ("projected_noise_video", "render_video_projected_noise",
                  lambda: runner.render_video_projected_noise(images, n_views=EVAL_VIEWS, noise=noise), EVAL_VIEWS,
@@ -1811,18 +1856,391 @@ def run_host_videos(device, root: str) -> dict:
             else:
                 check_image(frames, shape, "projected-noise frames")
             (r,) = record
-            native = host["extract_mesh"] + host["rasterize"]
+            marching, raster = host_ms(host, "extract_mesh"), host_ms(host, "rasterize")
+            native = marching + raster
             log(f"  {path}: {r['wall_ms']:.2f} ms wall under the profiler, {r['wall_ms'] / n_frames:.2f} ms per frame; "
                 f"device busy {r['busy_ms']:.3f} ms (field kernel {r['field_ms']:.3f} ms); host mesh work "
-                f"{native:.2f} ms (marching + welding {host['extract_mesh']:.2f}, rasterizer {host['rasterize']:.2f}), "
+                f"{native:.2f} ms (marching + welding {marching:.2f}, rasterizer {raster:.2f}), "
                 f"{native / r['wall_ms']:.3f} of the wall against the device's {r['busy_ms'] / r['wall_ms']:.3f}; "
                 f"peak memory {r['peak_gib']:.2f} GiB")
-    finally:
-        for name, fn in originals.items():
-            setattr(mesh, name, fn)
     del model, runner
     torch.cuda.empty_cache()
     return launches
+
+
+# Phase 10: the trainer CLI (python -m e3dge_torch.training.train) with its
+# services at stage2_config's full width, its --resume, and the NoW 3D eval
+# (python -m e3dge_torch.eval --mode now) at demo_view_synthesis_config's
+TR_ITERS, TR_DATA_IMAGES, TR_VAL_IMAGES = 4, 8, 5
+# train_stage2.2.sh's switches, at phase 8's recipe (the D's lambda defaults
+# to --adv-lambda, 0.01)
+TR_FLAGS = ["--stage", "2.2", "--batch", str(ST2_BATCH), "--lr", str(ST2_LR), "--fix-ada", "--ema",
+            "--pose-curriculum", "--adv-lambda", "0.01", "--r1", "60", "--d-reg-every", str(ST2_D_REG_EVERY),
+            "--log-every", "1"]
+# the resume gate: the spread of two uninterrupted runs on the card (grid
+# sampling's backward accumulates by atomics, cuDNN's algorithms are not
+# fixed) times RESUME_FACTOR, at least RESUME_FLOOR (relative)
+RESUME_FACTOR, RESUME_FLOOR = 10.0, 1e-5
+NOW_SUBJECTS, NOW_IMAGES, NOW_SCAN_POINTS, NOW_BATCH = 2, 2, 62_500, 2
+# field launches per NoW batch: the ref render (raw_h kept) and the SDF grid
+NOW_LAUNCHES_PER_BATCH = {"siren_field_full": 2, "siren_field_tex": 0}
+# now_scan_error on the first mesh and its scan, card against CPU: mean and
+# median within NOW_TOL scan units (ICP's nearest-vertex argmin may break a
+# tie differently); the control, the aligned mesh moved by 1 scan unit toward
+# the scan's landmarks, falls outside
+NOW_TOL = 1e-2
+
+
+def dir_mb(path: str) -> float:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs) / 2**20
+
+
+def run_trainer(device, root: str, st2_ms: float) -> dict:
+    """Phase 10a: `train.main` at stage2_config (phase 8's model and recipe),
+    B=4, TR_ITERS iterations with --data (8 seeded 256^2 PNGs), --val-data (5),
+    --saveimg-every 2, --val-every 4, --ckpt-every 2 and partial perceptual
+    checkpoints, under the CUDA-only profiler. Checks: models_latest, its
+    _old rotation and models_final, metrics.jsonl with one record per
+    iteration, the panels and the scores entry; each iteration's field
+    launches (phase 8's D 4 + 1 and E 5 + 0); the D's reals are the
+    folder's batches. Reports ms per iteration beside phase 8's, a --data
+    batch load, each checkpoint save (ms) and the checkpoints' MB, the
+    validation call and a panel (ms, launches), the run's device busy share
+    and peak memory. Returns the measured launches of the first iteration,
+    the validation call and a panel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from e3dge_torch.config import stage2_config
+    from e3dge_torch.ops import siren_field as sf
+    from e3dge_torch.runner import Runner
+    from e3dge_torch.training import data, steps, train
+    from e3dge_torch.utils import logger
+
+    d_res = min(stage2_config().decoder.size, 256)
+    reals = write_folder(os.path.join(root, "reals"), smooth_images(TR_DATA_IMAGES, 256, SEED + 7))
+    val = write_folder(os.path.join(root, "val"), smooth_images(TR_VAL_IMAGES, 256, SEED + 8))
+    batches = data.ImageFolderDataset(reals, size=d_res, thumb_size=min(64, d_res),
+                                      rng=np.random.RandomState(SEED)).iter_batches(ST2_BATCH, SEED)
+    expected, load_ms = [], []
+    for _ in range(TR_ITERS):
+        t0 = time.perf_counter()
+        expected.append(next(batches)["image"])
+        load_ms.append((time.perf_counter() - t0) * 1e3)
+    work = os.path.join(root, "trainer")
+    rec = defaultdict(list)
+    start = [0.0]
+
+    def split_now():
+        torch.cuda.synchronize()
+        return dict(sf.precision_launch_counts)
+
+    def d_batch(fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            sf.reset_launch_counts()
+            start[0] = time.perf_counter()
+            return fn(*args, **kwargs)
+        return call
+
+    def d_step(fn):
+        def make(*args, **kwargs):
+            step = fn(*args, **kwargs)
+
+            def call(reals, fakes):
+                rec["reals"].append(reals.detach().cpu().numpy())
+                return step(reals, fakes)
+            return call
+        return make
+
+    def log_hook(fn):
+        def call(self, step, metrics):
+            rec["iter"].append(((time.perf_counter() - start[0]) * 1e3, split_now()))
+            return fn(self, step, metrics)
+        return call
+
+    argv = [*TR_FLAGS, "--iters", str(TR_ITERS), "--data", reals, "--val-data", val, "--saveimg-every", "2",
+            "--val-every", "4", "--ckpt-every", "2", "--work-dir", work, *perceptual_files(root)]
+    log(f"  [10a] python -m e3dge_torch.training.train {' '.join(argv[:-4])} (+ partial perceptual .pth files)")
+    torch.cuda.reset_peak_memory_stats()
+    with patched(steps, full_d_batch=d_batch, make_full_d_step=d_step), \
+            patched(logger.MetricLogger, log=log_hook), \
+            patched(Runner, save_checkpoint=host_timed(rec, "save"), validation=host_timed(rec, "val")), \
+            patched(train, save_train_panel=host_timed(rec, "panel")), \
+            profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rc = train.main(argv)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    peak = peak_gib()
+    if rc != 0:
+        raise AssertionError(f"the trainer exited {rc}")
+    busy = sum(ev.time_range.elapsed_us() for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA and not getattr(ev, "is_user_annotation", False)) / 1e3
+    if busy <= 0:
+        raise AssertionError("the profiler saw no device time in the trainer")
+
+    want = {("siren_field_full", "highest"): ST2_D_LAUNCHES["siren_field_full"] + ST2_E_LAUNCHES["siren_field_full"],
+            ("siren_field_tex", "highest"): ST2_D_LAUNCHES["siren_field_tex"] + ST2_E_LAUNCHES["siren_field_tex"]}
+    for i, (ms, split) in enumerate(rec["iter"]):
+        got = {k: v for k, v in split.items() if v}
+        log(f"  iteration {i}: {ms:.2f} ms (D producer to the E step's log), launches {split_text(split)}")
+        if got != want:
+            raise AssertionError(f"trainer iteration {i} launched {got}, expected phase 8's {want}")
+    if len(rec["reals"]) != TR_ITERS or any(not np.array_equal(g, w) for g, w in zip(rec["reals"], expected)):
+        raise AssertionError("the D's reals are not the --data folder's batches")
+    log(f"  the D's reals: the --data folder's {TR_ITERS} batches of {ST2_BATCH}, equal")
+    files = {
+        "models_latest": os.path.isfile(os.path.join(work, "models_latest", "d_state.pt")),
+        "models_latest_old": os.path.isfile(os.path.join(work, "models_latest_old", "state.pt")),
+        "models_final": os.path.isfile(os.path.join(work, "models_final", "variables.pt")),
+        "metrics.jsonl": sum(1 for _ in open(os.path.join(work, "metrics.jsonl"))) == TR_ITERS,
+        "2 panels": sorted(os.listdir(os.path.join(work, "train", "images"))) == ["iter_0000002.png",
+                                                                                 "iter_0000004.png"],
+        "scores.json": len(json.load(open(os.path.join(work, "scores.json")))) == 1,
+    }
+    log(f"  artifacts: {files}")
+    if not all(files.values()):
+        raise AssertionError(f"trainer artifacts missing: {files}")
+    scores = json.load(open(os.path.join(work, "scores.json")))[0]
+    check_scores(scores, TR_VAL_IMAGES, "in-training validation")
+    iter_ms = [ms for ms, _ in rec["iter"]]
+    log(f"  ms per iteration (host clock, D producer to the log, under the CUDA-only profiler): median "
+        f"{np.median(iter_ms):.2f}, min {min(iter_ms):.2f}, max {max(iter_ms):.2f}; phase 8's median "
+        f"{st2_ms:.2f} (CUDA events, no profiler)")
+    log(f"  --data batch load (Pillow, 4 x 256^2 PNG + flips + thumbs): median {np.median(load_ms):.2f} ms, "
+        f"max {max(load_ms):.2f} ms")
+    sizes = ", ".join(f"{d} {dir_mb(os.path.join(work, d)):.1f} MB"
+                      for d in ("models_latest_old", "models_latest", "models_final"))
+    log(f"  checkpoint saves: {', '.join(f'{ms:.2f}' for ms, _ in rec['save'])} ms; the directories: {sizes}")
+    for key, what in (("val", "validation call (5 images, B=4)"), ("panel", "panel")):
+        for ms, launches in rec[key]:
+            log(f"  {what}: {ms:.2f} ms, launches {split_text(launches)}")
+    log(f"  the trainer's call: {wall:.2f} ms wall (model build, seeding and mean latents included), device busy "
+        f"{busy:.3f} ms, busy share {busy / wall:.3f}; peak memory {peak:.2f} GiB")
+    shutil.rmtree(work)
+    return {"iteration": {k: v for k, v in rec["iter"][0][1].items() if v}, "validation": rec["val"][0][1],
+            "panel": rec["panel"][0][1]}
+
+
+def _groups(work: str) -> dict[str, list[torch.Tensor]]:
+    """A run's models_final tensors by group: the trained modules, the BN
+    statistics, the E optimizer's moments, the EMA, the full-res D, its
+    optimizer, the volume D and its optimizer."""
+    ck = os.path.join(work, "models_final")
+    load = lambda f: torch.load(os.path.join(ck, f), map_location="cpu", weights_only=True)  # noqa: E731
+    var, st, ds = load("variables.pt"), load("state.pt"), load("d_state.pt")
+    moments = lambda opt: [t for s in opt["state"].values() for k, t in s.items() if torch.is_tensor(t)]  # noqa: E731
+    return {
+        "local+fuse_sft_block": [v for k, v in var.items() if k.split(".")[0] in ("local", "fuse_sft_block")],
+        "BN statistics": [v for k, v in var.items() if "running_" in k],
+        "volume D": [v for k, v in var.items() if k.startswith("volume_discriminator.")],
+        "E optimizer": moments(st["optimizer"]),
+        "EMA": list(st["ema"].values()),
+        "full-res D": list(ds["full"]["d"].values()),
+        "full-res D optimizer": moments(ds["full"]["optimizer"]),
+        "volume D optimizer": moments(ds["volume"]["optimizer"]),
+    }
+
+
+def run_gap(a: str, b: str, first_step: int) -> tuple[float, float, str]:
+    """(the largest relative gap of a logged metric from first_step on, the
+    largest relative L2 gap of a final-state group, that group) of run a
+    against run b."""
+    recs = [{r["step"]: r for r in map(json.loads, open(os.path.join(w, "metrics.jsonl")))} for w in (a, b)]
+    loss = max(abs(recs[0][s][k] - v) / max(abs(v), 1e-6) for s, r in recs[1].items() if s >= first_step
+               for k, v in r.items() if k not in ("step", "time"))
+    ga, gb = _groups(a), _groups(b)
+    gaps = {}
+    for name, want in gb.items():
+        x = torch.cat([t.double().flatten() for t in ga[name]])
+        y = torch.cat([t.double().flatten() for t in want])
+        gaps[name] = float((x - y).norm() / y.norm().clamp_min(1e-30))
+    worst = max(gaps, key=gaps.get)
+    return loss, gaps[worst], worst
+
+
+def run_resume(device, root: str) -> None:
+    """Phase 10b: `train.main` at phase 10a's configuration and switches
+    plus --train-volume-d (both D states through the checkpoint), no
+    --data: TR_ITERS iterations twice (the card's spread), then half of them
+    with --ckpt-every, then --resume to TR_ITERS. The resumed run's logged
+    metrics after the resume and its final state (trained modules, BN
+    statistics, E optimizer moments, EMA, both Ds and their optimizers)
+    against the first uninterrupted run, within RESUME_FACTOR x the spread
+    (at least RESUME_FLOOR); a control resume that drops the E optimizer's
+    state must fall outside."""
+    from e3dge_torch.training import steps, train
+
+    base = [*TR_FLAGS, "--train-volume-d", "--saveimg-every", "0", *perceptual_files(root)]
+    half = TR_ITERS // 2
+    runs = {}
+
+    def run(name, *extra):
+        t0 = time.perf_counter()
+        work = os.path.join(root, "resume", name)
+        if train.main([*base, *extra, "--work-dir", work]) != 0:
+            raise AssertionError(f"trainer run {name} failed")
+        log(f"  [10b] run {name} ({' '.join(extra)}): {time.perf_counter() - t0:.1f} s")
+        runs[name] = work
+        return work
+
+    run("whole_a", "--iters", str(TR_ITERS))
+    run("whole_b", "--iters", str(TR_ITERS))
+    part = run("part", "--iters", str(half), "--ckpt-every", str(half))
+    shutil.rmtree(os.path.join(part, "models_final"))  # the same state as models_latest
+    latest = os.path.join(part, "models_latest")
+    run("part", "--iters", str(TR_ITERS), "--resume", latest)
+
+    def no_optimizer(fn):
+        def load(self, sd):
+            fn(self, {**sd, "optimizer": self.optimizer.state_dict()})
+        return load
+
+    with patched(steps.TrainState, load_state_dict=no_optimizer):
+        run("control", "--iters", str(TR_ITERS), "--resume", latest)
+    spread_loss, spread_state, spread_where = run_gap(runs["whole_b"], runs["whole_a"], 1)
+    lim_loss = max(RESUME_FACTOR * spread_loss, RESUME_FLOOR)
+    lim_state = max(RESUME_FACTOR * spread_state, RESUME_FLOOR)
+    log(f"  spread of two uninterrupted runs: metrics {spread_loss:.3e}, final state {spread_state:.3e} "
+        f"({spread_where}); limits {lim_loss:.3e} and {lim_state:.3e}")
+    for name in ("part", "control"):
+        loss, state, where = run_gap(runs[name], runs["whole_a"], half + 1)
+        inside = loss <= lim_loss and state <= lim_state
+        log(f"  {'resumed' if name == 'part' else 'control (E optimizer state dropped)'} vs uninterrupted: metrics "
+            f"after the resume {loss:.3e} [limit {lim_loss:.3e}], final state {state:.3e} ({where}) "
+            f"[limit {lim_state:.3e}]: {'inside' if inside else 'outside'}")
+        if name == "part" and not inside:
+            raise AssertionError("the resumed run drifts from the uninterrupted one")
+        if name == "control" and state <= lim_state:
+            raise AssertionError("the control resume without the optimizer state passes the resume gate")
+
+
+def write_now_layout(root: str) -> str:
+    """A seeded NoW layout: NOW_SUBJECTS subjects x NOW_IMAGES JPEGs of
+    1024x768 (smooth seeded images) with their face boxes, and per subject a
+    scan .obj of NOW_SCAN_POINTS points on a head-sized ellipsoid (semi-axes
+    150, 190, 120 units; above evaluate3d's 40,000 points, so its strided
+    subsample runs) and a .pp of its 7 front-most points."""
+    from PIL import Image
+
+    rng = np.random.RandomState(SEED + 9)
+    fr = os.path.join(root, "final_release_version")
+    lines = []
+    for s in range(NOW_SUBJECTS):
+        subj = f"FaMoS_{s:03d}"
+        for d in ("iphone_pictures", "detected_face"):
+            os.makedirs(os.path.join(fr, d, subj), exist_ok=True)
+        for i in range(NOW_IMAGES):
+            rel = f"{subj}/IMG_{i:04d}.jpg"
+            img = smooth_images(1, 1024, SEED + 10 + 2 * s + i)[0][:768]
+            Image.fromarray(img).save(os.path.join(fr, "iphone_pictures", rel), quality=95)
+            left, top = 300 + 40 * rng.rand(), 150 + 40 * rng.rand()
+            np.save(os.path.join(fr, "detected_face", rel.replace(".jpg", ".npy")),
+                    {"left": left, "right": left + 400, "top": top, "bottom": top + 420})
+            lines.append(rel)
+        pts = rng.randn(NOW_SCAN_POINTS, 3)
+        pts = pts / np.linalg.norm(pts, axis=1, keepdims=True) * np.array([150.0, 190.0, 120.0])
+        for d in ("scans", "scans_lmks_onlypp"):
+            os.makedirs(os.path.join(root, d, subj), exist_ok=True)
+        with open(os.path.join(root, "scans", subj, "natural_head_rotation.000001.obj"), "w") as f:
+            f.write("".join(f"v {x:.4f} {y:.4f} {z:.4f}\n" for x, y, z in pts))
+        front = pts[np.argsort(-pts[:, 2])[:7]]
+        with open(os.path.join(root, "scans_lmks_onlypp", subj, "natural_head_rotation.000001_picked_points.pp"),
+                  "w") as f:
+            f.write("<!DOCTYPE PickedPoints>\n<PickedPoints>\n" + "".join(
+                f' <point x="{x:.4f}" y="{y:.4f}" z="{z:.4f}" active="1" name="{i}"/>\n'
+                for i, (x, y, z) in enumerate(front)) + "</PickedPoints>\n")
+    with open(os.path.join(root, "imagepathsvalidation.txt"), "w") as f:
+        f.write("\n".join(lines))
+    return root
+
+
+def now_kernel_check(device) -> dict:
+    """The field kernel at the NoW batch's SDF grid (B=2, zero dirs) against
+    its plain version, timed beside its bound; the batch's ref render (B=2
+    with raw_h) is phase 9's validation render."""
+    return {"NoW SDF grid": {"entry": "siren_field_full", "precision": "highest", "batch": NOW_BATCH, "n": N_FULL,
+                             "sdf_only": True, **check_and_time_full("NoW SDF grid, zero dirs", NOW_BATCH, N_FULL,
+                                                                     False, "highest", device, sdf_only=True)}}
+
+
+def run_now(device, root: str) -> dict:
+    """Phase 10c: `eval.main --mode now` at demo_view_synthesis_config, f32,
+    batch 2, on `write_now_layout`: the field launches per batch asserted,
+    a mesh per image, finite mean / median / std, ms per image split into
+    inversion + mesh, ICP and scan-to-mesh; then `now_scan_error` on the
+    first mesh and its subsampled scan, card against CPU within NOW_TOL,
+    with the control outside. Returns the measured launches per batch by
+    (entry, precision)."""
+    from e3dge_torch import eval as teval
+    from e3dge_torch.training import eval3d
+    from e3dge_torch.utils.mesh import load_obj, load_obj_vertices
+
+    data = write_now_layout(os.path.join(root, "now"))
+    out = os.path.join(root, "now_out")
+    host = defaultdict(list)
+    record = []
+    n_images = NOW_SUBJECTS * NOW_IMAGES
+    argv = ["--data", data, "--mode", "now", "--batch", str(NOW_BATCH), "--out", out]
+    log(f"  [10c] python -m e3dge_torch.eval {' '.join(argv)}")
+    with patched(eval3d, icp_align=host_timed(host, "icp"), scan_to_mesh_distance=host_timed(host, "scan_to_mesh")), \
+            probed(("evaluate3d",), record):
+        rc, counts, split = counted_split(lambda: teval.main(argv))
+    if rc != 0:
+        raise AssertionError(f"eval --mode now exited {rc}")
+    batches = -(-n_images // NOW_BATCH)
+    want = {(k, "highest"): v * batches for k, v in NOW_LAUNCHES_PER_BATCH.items()}
+    log(f"  launch counts over the call: {counts}; by precision: {split_text(split)}")
+    if {k: v for k, v in split.items() if v} != {k: v for k, v in want.items() if v}:
+        raise AssertionError(f"eval now launched {split}, expected {want}")
+    meshes = os.path.join(out, "now_meshes")
+    scores = json.load(open(os.path.join(meshes, "now_scores.json")))
+    objs = sorted(os.path.join(d, f) for d, _, fs in os.walk(meshes) for f in fs if f.endswith(".obj"))
+    n_verts = [len(load_obj(p)[0]) for p in objs]
+    log(f"  {len(objs)} meshes ({n_verts} vertices); scores {scores}")
+    if len(objs) != n_images or scores["num_scored"] != n_images or \
+            not all(math.isfinite(scores[k]) for k in ("mean", "median", "std")):
+        raise AssertionError(f"eval now: {len(objs)} meshes, scores {scores}")
+    (r,) = record
+    icp, s2m = host_ms(host, "icp"), host_ms(host, "scan_to_mesh")
+    rest = r["wall_ms"] - icp - s2m
+    log(f"  evaluate3d: {r['wall_ms']:.2f} ms wall under the profiler for {n_images} images, "
+        f"{r['wall_ms'] / n_images:.2f} ms per image: inversion + mesh + I/O {rest / n_images:.2f}, ICP "
+        f"{icp / n_images:.2f}, scan-to-mesh {s2m / n_images:.2f}; device busy "
+        f"{r['busy_ms']:.3f} ms (field kernel {r['field_ms']:.3f} ms), busy share {r['busy_ms'] / r['wall_ms']:.3f}; "
+        f"peak memory {r['peak_gib']:.2f} GiB")
+
+    subj = os.path.basename(os.path.dirname(objs[0]))
+    verts, faces = load_obj(objs[0])
+    scan = load_obj_vertices(os.path.join(data, "scans", subj, "natural_head_rotation.000001.obj"))
+    scan = scan[:: len(scan) // 40000 + 1]
+    lms = eval3d.parse_picked_points(os.path.join(data, "scans_lmks_onlypp", subj,
+                                                  "natural_head_rotation.000001_picked_points.pp"))
+
+    toward = lms.mean(0) - scan.mean(0)  # toward the cropped face region
+
+    def moved(fn):
+        def call(*args, **kwargs):
+            s_, r_, t_ = fn(*args, **kwargs)
+            return s_, r_, t_ + toward / np.linalg.norm(toward)
+        return call
+
+    results = {}
+    for name, dev, shift in (("card", device, False), ("CPU", "cpu", False), ("card, mesh moved 1 unit", device, True)):
+        t0 = time.perf_counter()
+        with patched(eval3d, icp_align=moved) if shift else contextlib.nullcontext():
+            d = eval3d.now_scan_error(verts, faces, scan, scan_lms=lms, device=dev)
+        results[name] = (float(d.mean()), float(np.median(d)))
+        log(f"  now_scan_error on the {name}: mean {results[name][0]:.6f}, median {results[name][1]:.6f} over "
+            f"{len(d)} scan points, {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    for name in ("card", "card, mesh moved 1 unit"):
+        gaps = [abs(a - b) for a, b in zip(results[name], results["CPU"])]
+        inside = max(gaps) <= NOW_TOL
+        log(f"  {name} vs CPU: mean {gaps[0]:.3e}, median {gaps[1]:.3e} scan units [tol {NOW_TOL:g}]: "
+            f"{'inside' if inside else 'outside'}")
+        if (name == "card") != inside:
+            raise AssertionError(f"now_scan_error card-vs-CPU gate: {name} {'outside' if name == 'card' else 'inside'}")
+    return {k: v // batches for k, v in split.items()}
 
 
 def main() -> int:
@@ -1833,6 +2251,7 @@ def main() -> int:
     from e3dge_torch.ops import siren_field as sf
 
     device = torch.device("cuda")
+    t_start = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     log(f"[1] card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -1842,7 +2261,7 @@ def main() -> int:
     log(f"[2] field kernels built in {time.perf_counter() - t0:.1f} s: {path.name}")
     check_build(path, build_log)
 
-    log("[3] field kernel vs its plain version on the card")
+    log(f"[3] field kernel vs its plain version on the card (at {time.perf_counter() - t_start:.1f} s)")
     with torch.no_grad():
         main_err = check_kernels(device)
         times = time_kernels(device)
@@ -1856,34 +2275,49 @@ def main() -> int:
     with torch.no_grad():
         check_path_shapes(device)
 
-    log("[4] image2image, flagship config on seeded weights")
+    log(f"[4] image2image, flagship config on seeded weights (at {time.perf_counter() - t_start:.1f} s)")
     counts, inv_ms, bf16_img, flagship = run_flagship(device)
 
-    log("[5] f32 image2image, card vs CPU; bf16 vs f32")
+    log(f"[5] f32 image2image, card vs CPU; bf16 vs f32 (at {time.perf_counter() - t_start:.1f} s)")
     f32_card, f32_img = run_card_vs_cpu(device, bf16_img)
 
-    log("[6] the other inference paths, flagship config")
+    log(f"[6] the other inference paths, flagship config (at {time.perf_counter() - t_start:.1f} s)")
     with torch.no_grad():
         paths = run_paths(device, flagship, f32_card, f32_img, bf16_img)
     paths["image2image"] = counts
     del flagship, f32_card
     torch.cuda.empty_cache()
 
-    log("[7] stage-1 training, stage1_config at full width")
+    log(f"[7] stage-1 training, stage1_config at full width (at {time.perf_counter() - t_start:.1f} s)")
     st1 = run_stage1(device)
     st1_card_vs_cpu(device)
 
-    log("[8] stage-2.2 training, stage2_config at full width")
+    log(f"[8] stage-2.2 training, stage2_config at full width (at {time.perf_counter() - t_start:.1f} s)")
     st2 = run_stage2(device)
     st2_card_vs_cpu(device)
 
-    log("[9] the eval entry point, demo_view_synthesis_config at full width")
+    log(f"[9] the eval entry point, demo_view_synthesis_config at full width (at {time.perf_counter() - t_start:.1f} s)")
     with tempfile.TemporaryDirectory(prefix="e3dge_eval_") as root:
         ev_kernel = eval_kernel_check(device)
         ev = run_eval(device, root)
         eval_card_vs_cpu(device, root)
         ev.update(run_host_videos(device, root))
     ev_shapes = [{"label": label, **r} for label, r in ev_kernel.items()]
+
+    log(f"[10] the trainer CLI with its services, --resume, and the NoW 3D eval (at {time.perf_counter() - t_start:.1f} s)")
+    with tempfile.TemporaryDirectory(prefix="e3dge_train_") as root:
+        log(f"  {shutil.disk_usage(root).free / 2**30:.1f} GiB free under {root} (the checkpoints take ~6 GiB)")
+        tr = run_trainer(device, root, st2["ms"])
+        run_resume(device, root)
+        ev_shapes += [{"label": label, **r} for label, r in now_kernel_check(device).items()]
+        now = run_now(device, root)
+
+    def trainer_launches(entry, precision):
+        """Phase 10's measured launches of one entry in one precision, by
+        path (the trainer and the NoW eval run f32: `highest`)."""
+        key = (entry, precision)
+        return {"trainer_iteration": tr["iteration"].get(key, 0), "trainer_validation": tr["validation"].get(key, 0),
+                "trainer_panel": tr["panel"].get(key, 0), "eval_now_batch": now.get(key, 0)}
 
     def eval_launches(entry, precision):
         """Phase 9's measured launches of one entry in one precision, by path."""
@@ -1906,6 +2340,7 @@ def main() -> int:
             "launches_by_path": {path: paths[path][name] for path in PATHS},
         })
         kernels[-1]["launches_by_path"].update(eval_launches(name, "serving"))
+        kernels[-1]["launches_by_path"].update(trainer_launches(name, "serving"))
         kernels[-1]["shapes"] = [r for r in ev_shapes if r["entry"] == name and r["precision"] == "serving"]
     # the stage-1 path's kernel: the f32 entry of csrc/siren_field.cu at the
     # sample render's shape; launches over the measured steps (all `highest`)
@@ -1923,7 +2358,8 @@ def main() -> int:
         "launches_by_path": {"latent2surface": paths["latent2surface"]["siren_field_full"],
                              "stage1_step": st1["per_step"]["siren_field_full"],
                              "stage2_iteration": st2["per_iter"]["siren_field_full"],
-                             **eval_launches("siren_field_full", "highest")},
+                             **eval_launches("siren_field_full", "highest"),
+                             **trainer_launches("siren_field_full", "highest")},
         "launches_stage2": st2["launches"]["siren_field_full"],
     })
     # the texture entry in f32, on the stage-2 path (the D's fake producer):
@@ -1940,9 +2376,10 @@ def main() -> int:
         "shapes": [r for r in ev_shapes if r["entry"] == "siren_field_tex" and r["precision"] == "highest"],
         "launches_by_path": {"stage1_step": st1["per_step"]["siren_field_tex"],
                              "stage2_iteration": st2["per_iter"]["siren_field_tex"],
-                             **eval_launches("siren_field_tex", "highest")},
+                             **eval_launches("siren_field_tex", "highest"),
+                             **trainer_launches("siren_field_tex", "highest")},
     })
-    log(f"image2image ms per inversion (flagship bf16, B=1): {inv_ms:.4f}")
+    log(f"image2image ms per inversion (flagship bf16, B=1): {inv_ms:.4f}; all phases {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

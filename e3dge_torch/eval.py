@@ -8,19 +8,22 @@
     python -m e3dge_torch.eval --data imgs/ --mode edit --smile 1.0 --boundaries boundaries/
     python -m e3dge_torch.eval --data imgs/ --mode mesh --out meshes/
     python -m e3dge_torch.eval --data frames/ --mode hdtf --max-images 250
+    python -m e3dge_torch.eval --data now/ --mode now --batch 2 --out runs/now
+    python -m e3dge_torch.eval --data imgs/ --ckpt runs/train/models_final
     python -m e3dge_torch.eval --tiny --device cpu --data imgs/ --mode metrics
 
 Modes: `metrics` (validation scores; with --projection-root, from saved
 projection latents), `project` (optimisation inversion, --pti for PTI),
 `video` (novel-view trajectories), `edit` (semantic editing), `mesh` (.obj
-per image) and `hdtf` (the HDTF novel-view video). The model is
-`demo_view_synthesis_config` (`tiny_full_config` with --tiny) on seeded
-weights, as the JAX CLI's are without checkpoints, with zero mean latents;
---torch-ckpt / --torch-encoder-ckpt load reference checkpoints and then
-average 10,000 mapping samples for the mean latents; --ckpt loads the
-`<module>.pt` files of the port's trainer where their shapes match. The
-device defaults to the card and raises without one. Not here: the NoW 3D
-mode.
+per image), `hdtf` (the HDTF novel-view video) and `now` (the NoW 3D eval:
+a mesh per benchmark image, scored against the layout's scans,
+`Runner.evaluate3d`). The model is `demo_view_synthesis_config`
+(`tiny_full_config` with --tiny) on seeded weights, as the JAX CLI's are
+without checkpoints, with zero mean latents; --ckpt loads a trainer's
+`models_<name>` directory (`Runner.load_checkpoint`; a path, or a name under
+--out); --torch-ckpt / --torch-encoder-ckpt load reference checkpoints and
+then average 10,000 mapping samples for the mean latents. The device
+defaults to the card and raises without one.
 """
 
 from __future__ import annotations
@@ -35,14 +38,16 @@ import torch
 # mapping samples averaged for the mean latents after a reference checkpoint
 # (scripts/eval.py:151)
 MEAN_LATENT_SAMPLES = 10000
-MODES = ("metrics", "video", "edit", "mesh", "hdtf", "project")
+MODES = ("metrics", "video", "edit", "mesh", "now", "hdtf", "project")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--data", required=True)
     ap.add_argument("--mode", choices=MODES, default="metrics")
-    ap.add_argument("--ckpt", default=None, help="a work dir of the port's trainer: warm-load its <module>.pt files")
+    ap.add_argument("--ckpt", default=None,
+                    help="the trainer's <work-dir>/models_<name> directory (or a name under --out); a directory of "
+                         "<module>.pt files of the earlier layout warm-starts where the shapes match")
     ap.add_argument("--torch-ckpt", default=None,
                     help="reference StyleSDF .pt (g_ema generator + netLocal; its 'd' entry fills the volume D)")
     ap.add_argument("--torch-encoder-ckpt", default=None,
@@ -110,7 +115,6 @@ def main(argv=None) -> int:
     from e3dge_torch.models.e3dge import E3DGE, LatentMeans
     from e3dge_torch.runner import Runner
     from e3dge_torch.training.data import EvalImageDataset
-    from e3dge_torch.training.train import load_ckpt
     from e3dge_torch.utils.image_io import write_video
     from e3dge_torch.utils.mesh import save_obj
     from e3dge_torch.utils.weights import init_weights
@@ -131,12 +135,12 @@ def main(argv=None) -> int:
         if not (args.lpips_ckpt and args.arcface_ckpt):
             print("NOTE: LPIPS/ID nets are random-init (pass --lpips-ckpt/--arcface-ckpt "
                   "for reference-comparable numbers)")
+    runner = Runner(model, ml, dev, work_dir=args.out, lpips_fn=lpips_fn, id_fn=id_fn)
     if args.ckpt:
-        load_ckpt(model, args.ckpt)
+        runner.load_checkpoint(args.ckpt)
     if args.torch_ckpt or args.torch_encoder_ckpt:
         load_reference(model, args.torch_ckpt, args.torch_encoder_ckpt)
-        ml = model.mean_latent(MEAN_LATENT_SAMPLES, torch.Generator(dev).manual_seed(2))
-    runner = Runner(model, ml, dev, work_dir=args.out, lpips_fn=lpips_fn, id_fn=id_fn)
+        runner.mean_latents = model.mean_latent(MEAN_LATENT_SAMPLES, torch.Generator(dev).manual_seed(2))
     out = Path(args.out)
 
     def first_batch() -> torch.Tensor:
@@ -172,6 +176,8 @@ def main(argv=None) -> int:
         res = runner.edit_and_render(first_batch(), [0, args.smile, 0, 0, 0])
         np.save(out / "edited.npy", res["res_render_out"]["gen_imgs"].float().cpu().numpy())
         print("wrote edited renders to", out / "edited.npy")
+    elif args.mode == "now":
+        print(runner.evaluate3d(args.data, batch_size=args.batch))
     elif args.mode == "hdtf":
         print(runner.render_hdtf(args.data, max_frames=args.max_images or 250, batch_size=args.batch))
     elif args.mode == "mesh":

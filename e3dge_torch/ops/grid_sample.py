@@ -60,14 +60,22 @@ def interpolate_bicubic(
 
 
 def adaptive_avg_pool(x: torch.Tensor, out: int) -> torch.Tensor:
-    """AdaptiveAvgPool2d for sizes that divide (the only case the pipeline hits);
-    smaller inputs repeat (`e3dge.py:46-69`)."""
+    """torch.nn.AdaptiveAvgPool2d to (out, out), the reference's pool (its
+    256^2 and 64^2 adapters `pool_256` / `pool_64`, datasetgan_runner.py:56-57,
+    and `gt_pool`, utils/transform.py:3). The JAX function
+    (`e3dge.py:46-69`) emulates it for sizes that divide, as a box filter or
+    a nearest repeat, and the same two are taken here; any other size pools
+    by AdaptiveAvgPool2d's bins. NoW's 224^2 crops into a 256^2 model are
+    such a size: the JAX function keeps 224 there going up and raises going
+    down (ROADMAP §C)."""
     h = x.shape[-1]
     if h == out:
         return x
-    if h > out:
+    if h > out and h % out == 0:
         return F.avg_pool2d(x, h // out)
-    return upsample_nearest(x, out)
+    if h < out and out % h == 0:
+        return upsample_nearest(x, out)
+    return adaptive_avg_pool2d(x, (out, out))
 
 
 def adaptive_avg_pool2d(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:

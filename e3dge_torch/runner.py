@@ -1,21 +1,22 @@
 """Runner — the inference and evaluation entry points around a port `E3DGE`;
-counterpart of `e3dge_tpu/runner.py:30-670` (reference trainer.py,
+counterpart of `e3dge_tpu/runner.py` (reference trainer.py,
 e3dge_full_runner.py, projectors.py): inversion, novel-view videos (batched,
 with projected noise, the HDTF video), camera trajectories, the depth-mesh
-render, semantic editing, toonify, mesh export, validation with scores.json,
-optimisation inversion with PTI and validation from its latents.
+render, semantic editing, toonify, mesh export, the NoW 3D evaluation,
+validation with scores.json, optimisation inversion with PTI and validation
+from its latents, and the trainer's checkpoints with their `_old` rotation.
 
 Decoder noise is explicit: each call takes a list of per-layer noise maps for
 the B inputs, or draws one from a `torch.Generator` seeded with NOISE_SEED
 (the JAX runner's fixed noise key). The B*V batch of a batched video tiles
 each input's maps over its V views, so the batched form and the per-view loop
-see the same noise. Not ported yet (ROADMAP A15b, A15d): checkpoint rotation
-and resume, the NoW 3D evaluation.
+see the same noise.
 """
 
 from __future__ import annotations
 
 import json
+import shutil
 import time
 from pathlib import Path
 from typing import Any, Callable, Mapping, Sequence
@@ -313,6 +314,61 @@ class Runner:
             frames.append(frame.astype(np.float32))
         return np.stack(frames, axis=0)
 
+    def evaluate3d(
+        self,
+        now_folder: str | Path,
+        batch_size: int = 2,
+        out_dir: str | Path | None = None,
+        max_scan_points: int = 40000,
+    ) -> dict[str, Any]:
+        """The NoW 3D eval (reference evaluate3D, trainer.py:2103-2208): each
+        validation crop (`NoWDataset`, 224^2) is inverted and its mesh written
+        as out_dir/<subject>/<image>.obj; where the layout holds a subject's
+        scan (scans/<subject>/*.obj, strided down to at most
+        max_scan_points) and its landmarks (scans_lmks_onlypp/<subject>/*.pp),
+        each mesh is scored by `now_scan_error` (ICP: no predicted landmarks,
+        as the JAX runner) and the mean, median and std of the distances in
+        scan units go to out_dir/now_scores.json."""
+        from e3dge_torch.training.eval3d import now_scan_error, parse_picked_points
+        from e3dge_torch.training.now_data import NoWDataset
+
+        root = Path(now_folder)
+        ds = NoWDataset(root)
+        out_dir = Path(out_dir or (self.work_dir / "now_meshes"))
+        out_dir.mkdir(parents=True, exist_ok=True)
+        n = 0
+        all_dists: list[np.ndarray] = []
+        scan_cache: dict[str, tuple] = {}
+        for batch in ds.iter_batches(batch_size):
+            ref = self.encode_ref(torch.from_numpy(batch["image"]))
+            meshes = self.latent2surface(ref["pred_latents"], ref["cam_settings"])
+            for (verts, faces), name, subj in zip(meshes, batch["imagename"], batch["subject"]):
+                (out_dir / subj).mkdir(parents=True, exist_ok=True)
+                mesh.save_obj(out_dir / subj / f"{name}.obj", verts, faces)
+                n += 1
+                if len(verts) == 0:
+                    continue
+                if subj not in scan_cache:
+                    scan_objs = sorted((root / "scans" / subj).glob("*.obj"))
+                    lms_files = sorted((root / "scans_lmks_onlypp" / subj).glob("*.pp"))
+                    scan_pts = mesh.load_obj_vertices(scan_objs[0]) if scan_objs else None
+                    scan_lms = parse_picked_points(lms_files[0]) if lms_files else None
+                    if scan_pts is not None and len(scan_pts) > max_scan_points:
+                        scan_pts = scan_pts[:: len(scan_pts) // max_scan_points + 1]
+                    scan_cache[subj] = (scan_pts, scan_lms)
+                scan_pts, scan_lms = scan_cache[subj]
+                if scan_pts is None:
+                    continue
+                dists = now_scan_error(verts, faces, scan_pts, scan_lms=scan_lms, device=self.device)
+                all_dists.append(dists[np.isfinite(dists)])
+        result: dict[str, Any] = {"num_meshes": n, "out_dir": str(out_dir)}
+        if all_dists:
+            d = np.concatenate(all_dists)
+            result.update(mean=float(d.mean()), median=float(np.median(d)), std=float(d.std()),
+                          num_scored=len(all_dists))
+            (out_dir / "now_scores.json").write_text(json.dumps(result, indent=2))
+        return result
+
     # ------------------------------------------------------------- validation
 
     @torch.no_grad()
@@ -494,6 +550,75 @@ class Runner:
         scores["projection_validation"] = True
         self._append_scores(scores)
         return scores
+
+    # ------------------------------------------------------------ checkpoints
+
+    def save_checkpoint(self, state=None, name: str = "latest", d_state=None) -> Path:
+        """work_dir/models_<name>/ with variables.pt (the model's whole
+        state_dict, BatchNorm statistics included), and state.pt (a
+        `TrainState`'s step, optimizer and EMA) and d_state.pt (a DState, or
+        a dict of states or None, as the trainer's {"full", "volume"}) when
+        given; an existing models_<name> is rotated to models_<name>_old
+        first (reference base_runner.py:277-284)."""
+        path = self.work_dir / f"models_{name}"
+        old = self.work_dir / f"models_{name}_old"
+        if path.exists():
+            if old.exists():
+                shutil.rmtree(old)
+            path.rename(old)
+        path.mkdir(parents=True)
+        torch.save(self.model.state_dict(), path / "variables.pt")
+        if state is not None:
+            torch.save(state.state_dict(), path / "state.pt")
+        if d_state is not None:
+            torch.save(_saved(d_state), path / "d_state.pt")
+        return path
+
+    def load_checkpoint(self, name: str = "latest", state_template=None, d_template=None):
+        """The model's variables from work_dir/models_<name>, or from `name`
+        when it is a directory. With templates (states built as the saving
+        run's: a fresh `create_train_state`, a DState or a dict of them) the
+        saved training states are restored into them. Returns (state,
+        d_state), each None where the checkpoint or the template lacks it.
+        A directory of the earlier layout (`<module>.pt` files) warm-starts
+        the variables only (`utils.checkpoint.warm_start_checkpoint`)."""
+        from e3dge_torch.utils.checkpoint import warm_start_checkpoint
+
+        cand = Path(name).expanduser()
+        path = cand if cand.is_dir() else self.work_dir / f"models_{name}"
+
+        def load(file: str):
+            return torch.load(path / file, map_location=self.device, weights_only=True)
+
+        if not (path / "variables.pt").is_file():
+            warm_start_checkpoint(self.model, path)
+            return None, None
+        self.model.load_state_dict(load("variables.pt"))
+        state = d_state = None
+        if state_template is not None and (path / "state.pt").is_file():
+            state_template.load_state_dict(load("state.pt"))
+            state = state_template
+        if d_template is not None and (path / "d_state.pt").is_file():
+            d_state = _restore(d_template, load("d_state.pt"))
+        return state, d_state
+
+
+def _saved(tree):
+    """A state, or a dict of states or None, as its state_dicts."""
+    if isinstance(tree, dict):
+        return {k: _saved(v) for k, v in tree.items()}
+    return None if tree is None else tree.state_dict()
+
+
+def _restore(template, saved):
+    """`saved` (from `_saved`) loaded into the template's states in place;
+    returns the template, or None where either side has nothing."""
+    if template is None or saved is None:
+        return None
+    if isinstance(template, dict):
+        return {k: _restore(v, saved.get(k)) for k, v in template.items()}
+    template.load_state_dict(saved)
+    return template
 
 
 def _pad_batch(images: np.ndarray, batch_size: int) -> np.ndarray:

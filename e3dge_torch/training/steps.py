@@ -231,12 +231,36 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     ema: dict[str, torch.Tensor] | None = None
 
+    def state_dict(self) -> dict[str, Any]:
+        """The step, the optimizer's state_dict and the EMA (the parameters
+        themselves are the model's)."""
+        return {"step": self.step, "optimizer": self.optimizer.state_dict(), "ema": self.ema}
+
+    def load_state_dict(self, sd: dict[str, Any]) -> None:
+        """Restore a `state_dict()` into this state, built as the saving run's
+        (same trainable set, optimizer and --ema)."""
+        if (sd["ema"] is None) != (self.ema is None):
+            raise ValueError("the checkpoint's EMA does not match this run's (--ema)")
+        self.step = int(sd["step"])
+        self.optimizer.load_state_dict(sd["optimizer"])
+        if self.ema is not None:
+            for k, v in self.ema.items():
+                v.copy_(sd["ema"][k])
+
 
 def create_train_state(model: nn.Module, trainable_keys: Sequence[str], lr: float,
                        optimizer: str = "adam", ema: bool = False) -> TrainState:
     params = split_params(model, trainable_keys)
     return TrainState(step=0, params=params, optimizer=make_optimizer(params.values(), lr, optimizer),
                       ema={k: p.detach().clone() for k, p in params.items()} if ema else None)
+
+
+def create_volume_d_state(model: nn.Module, lr: float) -> TrainState:
+    """The volume D's own Adam state, as the JAX trainer keeps it
+    (`scripts/train.py:339-340`); unlike `create_train_state` it freezes
+    nothing (the volume D trains inside `make_volume_d_step` only)."""
+    params = {f"volume_discriminator.{k}": p for k, p in model.volume_discriminator.named_parameters()}
+    return TrainState(step=0, params=params, optimizer=make_optimizer(params.values(), lr))
 
 
 def optimizer_step(state: TrainState) -> None:
@@ -531,6 +555,14 @@ class DState:
     step: int
     d: nn.Module
     optimizer: torch.optim.Optimizer
+
+    def state_dict(self) -> dict[str, Any]:
+        return {"step": self.step, "d": self.d.state_dict(), "optimizer": self.optimizer.state_dict()}
+
+    def load_state_dict(self, sd: dict[str, Any]) -> None:
+        self.step = int(sd["step"])
+        self.d.load_state_dict(sd["d"])
+        self.optimizer.load_state_dict(sd["optimizer"])
 
 
 def create_d_state(d: nn.Module, lr: float, optimizer: str = "adam") -> DState:

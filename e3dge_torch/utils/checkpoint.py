@@ -1,5 +1,6 @@
 """Reference checkpoints into the port's modules; counterpart of the
-checkpoint helpers of `e3dge_tpu/utils/torch_ckpt.py:516-632`.
+checkpoint helpers of `e3dge_tpu/utils/torch_ckpt.py:516-632`; and the
+variables-only warm start from the port's own checkpoints (`--ckpt`).
 
 The port's modules keep the reference's state_dict keys, so a reference
 checkpoint loads with `load_state_dict(strict=True)` once its wrappers are
@@ -12,6 +13,7 @@ training checkpoint is a save_dict with one state_dict per network.
 from __future__ import annotations
 
 import os
+from pathlib import Path
 from typing import Any, Mapping
 
 import torch
@@ -27,6 +29,9 @@ E3DGE_SAVE_DICT_TOPS = {
     "volume_discriminator": "volume_discriminator",
 }
 LOCAL_PREFIX = "renderer.network.netLocal."
+# the top modules the port's trainer saved as `<module>.pt` files at its work
+# dir's root before it wrote `models_<name>/` checkpoints
+LEGACY_MODULES = ("encoder", "local", "grid_align", "fuse_sft_block", "volume_discriminator")
 
 
 def normalize_g_ema_keys(sd: Mapping[str, Any]) -> dict[str, Any]:
@@ -90,3 +95,30 @@ def load_reference_checkpoint(
     for top, sd in sds.items():
         getattr(model, top).load_state_dict(sd, strict=True)
     return list(sds)
+
+
+def warm_start(module: nn.Module, path: str | os.PathLike) -> None:
+    """Merge the state dict saved at path into module where the shapes match
+    (`train_utils.warm_start_merge`); the rest keeps its fresh values."""
+    from e3dge_torch.training.train_utils import warm_start_merge
+
+    merged, loaded, skipped = warm_start_merge(module.state_dict(), load_torch_file(path))
+    module.load_state_dict(merged)
+    print(f"warm-started from {path}: {loaded} entries loaded, {skipped} shape-mismatched kept fresh", flush=True)
+
+
+def warm_start_checkpoint(model: nn.Module, ckpt: str | os.PathLike) -> None:
+    """A variables-only warm start (reference --ckpt surgery,
+    train_setup.py:144-177): from a `models_<name>/` directory's
+    variables.pt, the whole model; from a directory of the earlier layout,
+    each `<module>.pt` the model has a module for. Raises if ckpt holds
+    neither."""
+    path = Path(ckpt)
+    if (path / "variables.pt").is_file():
+        warm_start(model, path / "variables.pt")
+        return
+    names = [n for n in LEGACY_MODULES if (path / f"{n}.pt").is_file() and hasattr(model, n)]
+    if not names:
+        raise FileNotFoundError(f"{path}: neither a models_<name> checkpoint (variables.pt) nor <module>.pt files")
+    for n in names:
+        warm_start(getattr(model, n), path / f"{n}.pt")

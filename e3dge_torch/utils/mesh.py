@@ -332,3 +332,15 @@ def load_obj(path: str | os.PathLike) -> tuple[np.ndarray, np.ndarray]:
             elif parts and parts[0] == "f":
                 faces.append([int(x.split("/")[0]) - 1 for x in parts[1:4]])
     return np.asarray(verts, np.float32).reshape(-1, 3), np.asarray(faces, np.int32).reshape(-1, 3)
+
+
+def load_obj_vertices(path: str | os.PathLike) -> np.ndarray:
+    """The vertex positions [V, 3] f64 of a .obj (the NoW scans); faces and
+    other records are ignored."""
+    verts = []
+    with open(path) as f:
+        for line in f:
+            if line.startswith("v "):
+                parts = line.split()
+                verts.append([float(parts[1]), float(parts[2]), float(parts[3])])
+    return np.asarray(verts, np.float64).reshape(-1, 3)

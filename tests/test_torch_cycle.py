@@ -384,21 +384,25 @@ def test_trainer_stage22_runs_and_warm_starts_from_stage1(tmp_path, capsys):
     from e3dge_torch.training import train
 
     st1, st2 = tmp_path / "st1", tmp_path / "st22"
-    assert train.main(["--tiny", "--iters", "1", "--batch", "2", "--device", "cpu", "--work-dir", str(st1)]) == 0
+    assert train.main(["--tiny", "--iters", "1", "--batch", "2", "--device", "cpu", "--log-every", "1",
+                       "--work-dir", str(st1)]) == 0
     assert train.main(["--stage", "2.2", "--tiny", "--iters", "2", "--batch", "2", "--device", "cpu",
                        "--adv-lambda", "0.01", "--d-reg-every", "2", "--ema", "--fix-ada", "--pose-curriculum",
-                       "--ckpt", str(st1), "--work-dir", str(st2)]) == 0
+                       "--log-every", "1", "--ckpt", str(st1 / "models_final"), "--work-dir", str(st2)]) == 0
     out = capsys.readouterr().out
     assert "warm-started from" in out and out.count("iter ") == 3
     for k in ("loss_e_adv", "res_loss", "d_r1"):
         assert f"'{k}'" in out, k
     assert "'d_r1': 0.0" in out.splitlines()[-2]  # step 1 of the D skips R1
-    files = {p.name for p in st2.iterdir()}
-    assert files == {"encoder.pt", "local.pt", "grid_align.pt", "fuse_sft_block.pt", "ema.pt", "discriminator.pt"}
-    e0_1, e0_2 = (torch.load(d / "encoder.pt", weights_only=True) for d in (st1, st2))
+    assert {p.name for p in st2.iterdir()} == {"models_final", "metrics.jsonl"}
+    assert {p.name for p in (st2 / "models_final").iterdir()} == {"variables.pt", "state.pt", "d_state.pt"}
+    e0_1, e0_2 = ({k: v for k, v in torch.load(d / "models_final" / "variables.pt", weights_only=True).items()
+                   if k.startswith("encoder.")} for d in (st1, st2))
     assert all(torch.equal(e0_1[k], e0_2[k]) for k in e0_1 if "running_" not in k and "num_batches" not in k)
-    ema = torch.load(st2 / "ema.pt", weights_only=True)
+    ema = torch.load(st2 / "models_final" / "state.pt", weights_only=True)["ema"]
     assert {k.split(".")[0] for k in ema} == {"local", "fuse_sft_block"}  # --fix-ada: the aligner is frozen
+    d_state = torch.load(st2 / "models_final" / "d_state.pt", weights_only=True)
+    assert d_state["volume"] is None and d_state["full"]["step"] == 2 and d_state["full"]["d"]
 
 
 def test_d_batch_producers(setup):

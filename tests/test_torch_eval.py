@@ -89,11 +89,11 @@ def perceptual_files(root: Path) -> tuple[Path, Path]:
     return paths
 
 
-def runner_pair(setup, root: Path, perceptual: bool = True):
+def runner_pair(setup, root: Path, perceptual: bool = True, seed: int = 0):
     """(JAX runner, port runner, seeded variables, mean latents) on one seeded
-    state dict and one pair of perceptual files."""
+    state dict (`seeded_variables(..., seed)`) and one pair of perceptual files."""
     cfg, _, variables, _ = setup
-    vs = seeded_variables(variables)
+    vs = seeded_variables(variables, seed)
     rng = np.random.RandomState(11)
     ml = ((0.2 * rng.randn(1, cfg.renderer.depth + 1, cfg.renderer.style_dim)).astype(np.float32),
           (0.2 * rng.randn(1, cfg.decoder.n_latent, cfg.decoder.style_dim)).astype(np.float32))

@@ -1,0 +1,51 @@
+"""The port stands alone: with `jax`, `flax`, `optax` and `e3dge_tpu` made
+unimportable, every module of `e3dge_torch` imports (walked by pkgutil), as
+does `chip_smoke.py`, and the trainer's and the eval CLI's parsers run."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+
+SCRIPT = r'''
+import importlib, importlib.abc, pkgutil, sys
+
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "e3dge_tpu")
+
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"blocked: {name}")
+        return None
+
+
+sys.meta_path.insert(0, Block())
+import e3dge_torch
+
+names = [m.name for m in pkgutil.walk_packages(e3dge_torch.__path__, "e3dge_torch.")]
+for name in names:
+    importlib.import_module(name)
+importlib.import_module("chip_smoke")
+from e3dge_torch import eval as teval
+from e3dge_torch.training import train
+
+try:
+    train.main(["--help"])
+except SystemExit as e:
+    assert e.code == 0, e.code
+args = teval.parse_args(["--data", "d", "--mode", "now"])
+assert args.mode == "now" and args.ckpt is None
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not leaked, leaked
+print("imported", len(names), "modules")
+'''
+
+
+def test_port_imports_nothing_of_jax_or_the_jax_package():
+    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "--resume" in proc.stdout and "imported" in proc.stdout
+    n = int(proc.stdout.split("imported ")[1].split()[0])
+    assert n >= len(list((REPO / "e3dge_torch").rglob("*.py"))) - 1  # every module but the package itself

@@ -154,9 +154,10 @@ def test_port_and_chip_smoke_import_no_jax():
     assert len(files) > 25
     for name in ("runner.py", "eval.py", "utils/mesh.py", "utils/editing.py", "utils/checkpoint.py",
                  "utils/image_io.py", "training/losses.py", "training/perceptual.py", "training/steps.py",
-                 "training/train_utils.py", "training/train.py", "training/data.py", "training/projector.py"):
+                 "training/train_utils.py", "training/train.py", "training/data.py", "training/projector.py",
+                 "training/now_data.py", "training/eval3d.py", "utils/logger.py"):
         assert REPO / "e3dge_torch" / name in files
-    banned = ("jax", "flax", "e3dge_tpu", "__graft_entry__")
+    banned = ("jax", "flax", "optax", "e3dge_tpu", "__graft_entry__")
     for path in files:
         for name in _imports(path):
             assert name.split(".")[0] not in banned, f"{path.relative_to(REPO)} imports {name}"

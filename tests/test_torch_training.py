@@ -540,11 +540,12 @@ def test_trainer_entry_point_runs_and_saves_e0(tmp_path):
     env = {**{k: v for k, v in os.environ.items() if k != "PYTHONPATH"}, "OMP_NUM_THREADS": "1"}
     proc = subprocess.run(
         [sys.executable, "-m", "e3dge_torch.training.train", "--tiny", "--iters", "2", "--batch", "2",
-         "--device", "cpu", "--work-dir", str(tmp_path)],
+         "--device", "cpu", "--log-every", "1", "--work-dir", str(tmp_path)],
         cwd=REPO, capture_output=True, text=True, timeout=300, env=env)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.count("iter ") == 2 and "eikonal_term" in proc.stdout
-    sd = torch.load(tmp_path / "encoder.pt", weights_only=True)
+    variables = torch.load(tmp_path / "models_final" / "variables.pt", weights_only=True)
+    sd = {k.removeprefix("encoder."): v for k, v in variables.items() if k.startswith("encoder.")}
     want = TE3DGE(tc.tiny_test_config(), device="cpu").encoder.state_dict()
     assert set(sd) == set(want)
     assert all(sd[k].shape == want[k].shape for k in want)
