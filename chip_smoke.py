@@ -107,7 +107,22 @@ Phases, each failing loudly (any failure exits non-zero before the last line):
      JPEGs of 1024x768, scans of 62,500 points): the NoW SDF grid's launch
      shape against the plain field, the launches per batch, a mesh per
      image, finite scores, ms per image in three parts, and
-     `now_scan_error` card against CPU with a moved-mesh control.
+     `now_scan_error` card against CPU with a moved-mesh control;
+ 11. data parallelism (`e3dge_torch.parallel`) on the one card: 2 ranks
+     over gloo with CUDA tensors, each run a torchrun process group of this
+     script's `--rank-child SPEC` with its own time limit: a. train.main at
+     stage1_config, B=4, 2 ranks against one rank within RESUME_FACTOR x
+     two one-rank runs' spread (metrics and final state), a BN-sync-off
+     control outside, the one-rank pair's spread in deterministic mode; b. phase
+     10b's run on 2 ranks against 10b's first run within 10b's limits, a
+     gradient-averaging-off control outside; c. the flagship's bf16
+     image2image of 2 images across 2 ranks, equal to one rank's per-row
+     inversions and within the bf16 limit of its B=2 call; d. one stage-1
+     iteration under nccl at world 1: every collective an exact identity,
+     the forward equal to runs without a process group, the backward within
+     their spread; each run's field launches per rank per iteration and the
+     per-rank launch shapes against the plain field, timed.
+     `python3 chip_smoke.py --phase 11` runs phases 1, 2, 10b and 11 only.
 Prints a `kernels` JSON line (with each entry's launches per path, and the
 `highest` entries the training paths launch), the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}.
@@ -2022,6 +2037,21 @@ def run_trainer(device, root: str, st2_ms: float) -> dict:
             "panel": rec["panel"][0][1]}
 
 
+def _moments(opt: dict) -> list[torch.Tensor]:
+    return [t for s in opt["state"].values() for k, t in s.items() if torch.is_tensor(t)]
+
+
+def _st1_groups(work: str) -> dict[str, list[torch.Tensor]]:
+    """A stage-1 run's models_final tensors by group: E0's parameters, its BN
+    statistics, the optimizer's moments."""
+    ck = os.path.join(work, "models_final")
+    var = torch.load(os.path.join(ck, "variables.pt"), map_location="cpu", weights_only=True)
+    st = torch.load(os.path.join(ck, "state.pt"), map_location="cpu", weights_only=True)
+    return {"E0": [v for k, v in var.items() if k.startswith("encoder.") and "running_" not in k],
+            "BN statistics": [v for k, v in var.items() if "running_" in k],
+            "E optimizer": _moments(st["optimizer"])}
+
+
 def _groups(work: str) -> dict[str, list[torch.Tensor]]:
     """A run's models_final tensors by group: the trained modules, the BN
     statistics, the E optimizer's moments, the EMA, the full-res D, its
@@ -2029,7 +2059,7 @@ def _groups(work: str) -> dict[str, list[torch.Tensor]]:
     ck = os.path.join(work, "models_final")
     load = lambda f: torch.load(os.path.join(ck, f), map_location="cpu", weights_only=True)  # noqa: E731
     var, st, ds = load("variables.pt"), load("state.pt"), load("d_state.pt")
-    moments = lambda opt: [t for s in opt["state"].values() for k, t in s.items() if torch.is_tensor(t)]  # noqa: E731
+    moments = _moments
     return {
         "local+fuse_sft_block": [v for k, v in var.items() if k.split(".")[0] in ("local", "fuse_sft_block")],
         "BN statistics": [v for k, v in var.items() if "running_" in k],
@@ -2042,24 +2072,24 @@ def _groups(work: str) -> dict[str, list[torch.Tensor]]:
     }
 
 
-def run_gap(a: str, b: str, first_step: int) -> tuple[float, float, str]:
+def run_gap(a: str, b: str, first_step: int, groups=_groups, skip=()) -> tuple[float, float, str]:
     """(the largest relative gap of a logged metric from first_step on, the
-    largest relative L2 gap of a final-state group, that group) of run a
-    against run b."""
+    largest relative L2 gap of a final-state group, that group and that
+    metric) of run a against run b; the metrics in `skip` are not read."""
     recs = [{r["step"]: r for r in map(json.loads, open(os.path.join(w, "metrics.jsonl")))} for w in (a, b)]
-    loss = max(abs(recs[0][s][k] - v) / max(abs(v), 1e-6) for s, r in recs[1].items() if s >= first_step
-               for k, v in r.items() if k not in ("step", "time"))
-    ga, gb = _groups(a), _groups(b)
+    loss, metric = max((abs(recs[0][s][k] - v) / max(abs(v), 1e-6), f"{k}@{s}") for s, r in recs[1].items()
+                       if s >= first_step for k, v in r.items() if k not in ("step", "time", *skip))
+    ga, gb = groups(a), groups(b)
     gaps = {}
     for name, want in gb.items():
         x = torch.cat([t.double().flatten() for t in ga[name]])
         y = torch.cat([t.double().flatten() for t in want])
         gaps[name] = float((x - y).norm() / y.norm().clamp_min(1e-30))
     worst = max(gaps, key=gaps.get)
-    return loss, gaps[worst], worst
+    return loss, gaps[worst], f"{worst}; metric {metric}"
 
 
-def run_resume(device, root: str) -> None:
+def run_resume(device, root: str) -> dict:
     """Phase 10b: `train.main` at phase 10a's configuration and switches
     plus --train-volume-d (both D states through the checkpoint), no
     --data: TR_ITERS iterations twice (the card's spread), then half of them
@@ -2068,7 +2098,8 @@ def run_resume(device, root: str) -> None:
     statistics, E optimizer moments, EMA, both Ds and their optimizers)
     against the first uninterrupted run, within RESUME_FACTOR x the spread
     (at least RESUME_FLOOR); a control resume that drops the E optimizer's
-    state must fall outside."""
+    state must fall outside. Returns the first uninterrupted run's work
+    directory, its flags and both limits (phase 11b's reference)."""
     from e3dge_torch.training import steps, train
 
     base = [*TR_FLAGS, "--train-volume-d", "--saveimg-every", "0", *perceptual_files(root)]
@@ -2113,6 +2144,10 @@ def run_resume(device, root: str) -> None:
             raise AssertionError("the resumed run drifts from the uninterrupted one")
         if name == "control" and state <= lim_state:
             raise AssertionError("the control resume without the optimizer state passes the resume gate")
+    for name in ("whole_b", "part", "control"):
+        shutil.rmtree(runs[name])
+    return {"work": runs["whole_a"], "argv": [*base, "--iters", str(TR_ITERS)], "lim_loss": lim_loss,
+            "lim_state": lim_state}
 
 
 def write_now_layout(root: str) -> str:
@@ -2243,6 +2278,429 @@ def run_now(device, root: str) -> dict:
     return {k: v // batches for k, v in split.items()}
 
 
+# Phase 11: data parallelism across ranks (e3dge_torch.parallel) on the one
+# card: each multi-rank run is a process group of this script's --rank-child
+# under torchrun, with its own time limit
+DP_RANKS, DP_ST1_ITERS, DP_TIMEOUT = 2, 2, 420
+# the stage-1 trainer run of 11a and 11d (stage1_config, B=4, phase 7's Adam
+# and lambdas through train.main)
+DP_ST1_FLAGS = ["--stage", "1", "--batch", str(ST1_BATCH), "--lr", str(ST1_LR), "--log-every", "1",
+                "--saveimg-every", "0"]
+# 11c: the flagship's bf16 image2image at B=2 across 2 ranks (B=1 each)
+# against one rank inverting the same rows at B=1 within phase 5's
+# card-vs-CPU limit, and against one rank's B=2 call within phase 5's bf16
+# limit (mean |a - b| / max |b|): bf16 convolutions at B=2 and at B=1 round
+# differently (0.148 max abs on an H100 at the flagship's 1024^2 output)
+DP_SERVE_BATCH, TOL_DP_SERVING = 2, TOL_CARD_VS_CPU
+# logged metrics that are not means over the batch: across ranks they are
+# the mean of the ranks' values (the reference's reduce_loss_dict), not the
+# global batch's
+DP_NONLINEAR_METRICS = ("psnr",)
+
+
+def dp_kernel_cases() -> tuple:
+    """The `highest` launch shapes the per-rank batch (B / DP_RANKS) gives the
+    trainer: (label, B, N, SDF-only). The stage-2 sample renders, the stage-1
+    sample render and the SDF targets; the query render, the texture pass
+    and the ref render at B=2 are phase 9's shapes."""
+    from e3dge_torch.config import stage1_config, stage2_config
+
+    b = ST1_BATCH // DP_RANKS
+    c1, c2 = stage1_config().renderer, stage2_config().renderer
+    return (("per-rank stage-2 sample render", b, c2.out_im_res ** 2 * c2.n_samples, False),
+            ("per-rank stage-1 sample render", b, c1.out_im_res ** 2 * c1.n_samples, False),
+            ("per-rank near-surface SDF targets", b, c1.out_im_res ** 2, True),
+            ("per-rank uniform SDF targets", b, c1.uniform_grid_sampling_num, True))
+
+
+def dp_kernel_check(device) -> dict:
+    """`siren_field_full` in `highest` at `dp_kernel_cases()` against its
+    plain version, timed beside the bound; {label: figures}."""
+    out = {}
+    for label, batch, n, sdf_only in dp_kernel_cases():
+        r = check_and_time_full(label, batch, n, False, "highest", device, sdf_only=sdf_only)
+        out[label] = {"entry": "siren_field_full", "precision": "highest", "batch": batch, "n": n,
+                      "sdf_only": sdf_only, **r}
+    return out
+
+
+def dp_serving_inputs(device):
+    """11c's model and inputs: the flagship on phase 4's seeded weights, 2
+    seeded 256^2 images, phase 4's seeded mean latents, seeded noise for 2."""
+    from e3dge_torch.config import flagship_config
+    from e3dge_torch.models.e3dge import E3DGE
+    from e3dge_torch.utils.weights import init_weights
+
+    cfg = flagship_config()
+    model = E3DGE(cfg, device=device)
+    init_weights(model, SEED)
+    images = torch.from_numpy(np.random.RandomState(SEED + 11).uniform(-1, 1, (DP_SERVE_BATCH, 3, 256, 256))
+                              .astype(np.float32))
+    _, ml, noise = to_device(images, seeded_inputs(cfg, SEED)[1], decoder_noise(cfg, DP_SERVE_BATCH, SEED), device)
+    return model, images.to(device), ml, noise
+
+
+def wrap_collectives(mesh, counts: dict) -> None:
+    """mesh's gradient all-reduce, metric reduction and broadcast wrapped:
+    each call counted, and each tensor it changed (at world 1 they must be
+    exact identities) counted in counts["changed"]."""
+    grads, metrics, bcast = mesh.all_reduce_grads, mesh.reduce_metrics, mesh.broadcast_
+
+    def check(before, after):
+        counts["calls"] += 1
+        counts["changed"] += sum(not torch.equal(a, b) for a, b in zip(before, after))
+
+    def all_reduce_grads(params, world):
+        params = list(params)
+        before = [p.grad.clone() for p in params if p.grad is not None]
+        grads(params, world)
+        check(before, [p.grad for p in params if p.grad is not None])
+
+    def reduce_metrics(m, world):
+        out = metrics(m, world)
+        check([torch.as_tensor(v, dtype=torch.float32).cpu() for v in m.values()],
+              [torch.as_tensor(v, dtype=torch.float32).cpu() for v in out.values()])
+        return out
+
+    def broadcast_(tensors, world):
+        tensors = list(tensors)
+        before = [t.detach().clone() for t in tensors]
+        bcast(tensors, world)
+        check(before, tensors)
+
+    mesh.all_reduce_grads, mesh.reduce_metrics, mesh.broadcast_ = all_reduce_grads, reduce_metrics, broadcast_
+
+
+def profile_window(spec: dict, rank: int, report: dict) -> None:
+    """With SPEC's "profile_from" (an iteration), rank 0 of a trainer run
+    profiles the card (torch.profiler, CUDA activity) from the first draw of
+    that iteration to the final save and adds to `report` the window's host
+    ms, device busy ms and NCCL kernel ms per iteration ("window")."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from e3dge_torch.runner import Runner
+    from e3dge_torch.training import train
+
+    first = spec.get("profile_from")
+    if first is None or rank != 0:
+        return
+    iters = int(spec["argv"][spec["argv"].index("--iters") + 1]) - first
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    window = {}
+    stream, save = train.stream_generator, Runner.save_checkpoint
+
+    def generator(device, *keys):
+        if keys[1:] == (first, train.D_STREAM) and not window:
+            torch.cuda.synchronize()
+            prof.start()
+            window["t0"] = time.perf_counter()
+        return stream(device, *keys)
+
+    def final_save(self, *args, **kwargs):
+        if window and "ms" not in window:
+            torch.cuda.synchronize()
+            window["ms"] = (time.perf_counter() - window["t0"]) * 1e3
+            prof.stop()
+            kernels = [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA
+                       and not getattr(ev, "is_user_annotation", False) and "memcpy" not in ev.name.lower()
+                       and "memset" not in ev.name.lower()]
+            busy = sum(ev.time_range.elapsed_us() for ev in kernels) / 1e3
+            nccl = sum(ev.time_range.elapsed_us() for ev in kernels if "nccl" in ev.name.lower()) / 1e3
+            report["window"] = {"ms_per_iter": window["ms"] / iters, "busy_ms_per_iter": busy / iters,
+                                "nccl_ms_per_iter": nccl / iters, "kernels": len(kernels)}
+        return save(self, *args, **kwargs)
+
+    train.stream_generator, Runner.save_checkpoint = generator, final_save
+
+
+def rank_child(spec_path: str) -> int:
+    """One rank of a multi-rank run of phase 11 or dp_scaling.py (`python -m
+    torch.distributed.run ... chip_smoke.py --rank-child SPEC`, or alone for
+    a world of one): SPEC's control applied (BN sync or gradient averaging
+    off), the field launch counts set to 0, `train.main(argv)` (profiled
+    with SPEC's "profile_from", `profile_window`) or the data-parallel
+    serving call run, and the rank's launches, seconds and (serving) images
+    written to SPEC's out directory."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from e3dge_torch.ops import siren_field as sf
+    from e3dge_torch.parallel import mesh
+    from e3dge_torch.runner import Runner
+    from e3dge_torch.training import train
+
+    spec = json.load(open(spec_path))
+    rank = int(os.environ.get("RANK", "0"))
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = spec["tf32"]
+    if spec.get("deterministic"):
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.backends.cudnn.benchmark = False
+    if spec.get("control") == "bn_sync_off":
+        mesh.mean_over_ranks = lambda x: x
+    elif spec.get("control") == "grad_average_off":
+        mesh.all_reduce_grads = lambda params, world: None
+    report = {"rank": rank}
+    init = mesh.init_distributed
+
+    def recorded_init(*args, **kwargs):
+        world = init(*args, **kwargs)
+        report.update(world_size=world.size, backend=torch.distributed.get_backend() if world.group else None)
+        return world
+
+    mesh.init_distributed = recorded_init
+    if spec.get("check_collectives"):
+        wrap_collectives(mesh, report.setdefault("collectives", {"calls": 0, "changed": 0}))
+    if spec["kind"] == "train":
+        profile_window(spec, rank, report)
+        torch.cuda.synchronize()
+        sf.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = train.main(spec["argv"])
+        torch.cuda.synchronize()
+    else:
+        world = mesh.init_distributed(spec["backend"])
+        try:
+            model, images, ml, noise = dp_serving_inputs(world.device)
+            runner = Runner(model, ml, world.device, work_dir=spec["out"], world=world)
+            with torch.no_grad():
+                runner.image2image(images, noise=noise)  # warm-up
+                torch.cuda.synchronize()
+                sf.reset_launch_counts()
+                t0 = time.perf_counter()
+                gen = runner.image2image(images, noise=noise)["res_render_out"]["gen_imgs"]
+                torch.cuda.synchronize()
+            report["call_ms"] = (time.perf_counter() - t0) * 1e3
+            if world.is_main:
+                np.save(os.path.join(spec["out"], "gen_imgs.npy"), gen.float().cpu().numpy())
+            rc = 0
+        finally:
+            mesh.shutdown(world)
+    report.update(rc=rc, seconds=time.perf_counter() - t0,
+                  launches={f"{e}/{p}": n for (e, p), n in sf.precision_launch_counts.items() if n})
+    with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    return rc
+
+
+def start_ranks(root: str, name: str, spec: dict, nproc: int | None = DP_RANKS, cards: str | None = None) -> dict:
+    """Start a multi-rank run: `nproc` ranks of `chip_smoke.py --rank-child
+    SPEC` under torchrun (--standalone), or one process without torchrun (nproc
+    None), in a session of its own, on `cards` (CUDA_VISIBLE_DEVICES; None:
+    all). SPEC is `spec` with its out directory root/dp/name, which also
+    takes the output, and this process's TF32 flags."""
+    out = os.path.join(root, "dp", name)
+    os.makedirs(out, exist_ok=True)
+    spec_path = os.path.join(out, "spec.json")
+    spec = {**spec, "out": out, "tf32": [torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32]}
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    me = os.path.abspath(__file__)
+    launcher = [] if nproc is None else ["-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(nproc)]
+    env = {**os.environ, **({"CUBLAS_WORKSPACE_CONFIG": ":4096:8"} if spec.get("deterministic") else {}),
+           **({"CUDA_VISIBLE_DEVICES": cards} if cards is not None else {})}
+    log_file = open(os.path.join(out, "output.log"), "w")
+    proc = subprocess.Popen([sys.executable, *launcher, me, "--rank-child", spec_path], cwd=os.path.dirname(me),
+                            env=env, stdout=log_file, stderr=subprocess.STDOUT, start_new_session=True)
+    return {"name": name, "proc": proc, "out": out, "log": log_file, "nproc": nproc or 1, "t0": time.perf_counter()}
+
+
+def wait_ranks(run: dict, timeout: float = DP_TIMEOUT) -> list[dict]:
+    """The ranks' reports once the run exits 0 within `timeout` seconds of
+    its start; past it the whole session is killed and the phase fails, as
+    it does on a non-zero exit (with the run's last output)."""
+    proc = run["proc"]
+    try:
+        proc.wait(timeout=max(timeout - (time.perf_counter() - run["t0"]), 1.0))
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        proc.wait()
+        raise AssertionError(f"run {run['name']}: still running after {timeout} s, killed") from None
+    finally:
+        run["log"].close()
+    text = open(os.path.join(run["out"], "output.log")).read()
+    if proc.returncode != 0:
+        raise AssertionError(f"run {run['name']} exited {proc.returncode}:\n{text[-4000:]}")
+    log(f"  {run['name']}: {time.perf_counter() - run['t0']:.1f} s; "
+        + "; ".join(line.split(" {")[0] for line in text.splitlines() if line.startswith(("iter ", "resumed"))))
+    return [json.load(open(os.path.join(run["out"], f"rank{r}.json"))) for r in range(run["nproc"])]
+
+
+def per_iteration(reports: list[dict], iters: int) -> dict:
+    """Each rank's field launches per iteration, by entry/precision."""
+    per = [{k: v / iters for k, v in r["launches"].items()} for r in reports]
+    if any(p != per[0] for p in per):
+        raise AssertionError(f"the ranks launched the field differently: {per}")
+    return per[0]
+
+
+def dp_gate(label: str, got: str, want: str, first_step: int, groups, lim_loss: float, lim_state: float,
+            control: str | None = None) -> dict:
+    """`run_gap` of run `got` (and of the control, which must fall outside)
+    against `want`, the batch-mean metrics within lim_loss and the final
+    state within lim_state."""
+    out = {}
+    for name, work in (("ranks", got), ("control", control)):
+        if work is None:
+            continue
+        loss, state, where = run_gap(work, want, first_step, groups, skip=DP_NONLINEAR_METRICS)
+        inside = loss <= lim_loss and state <= lim_state
+        log(f"  {label}, {'2 ranks' if name == 'ranks' else 'control'} vs one rank: metrics {loss:.3e} [limit "
+            f"{lim_loss:.3e}], final state {state:.3e} ({where}) [limit {lim_state:.3e}]: "
+            f"{'inside' if inside else 'outside'}")
+        if name == "ranks" and not inside:
+            raise AssertionError(f"{label}: 2 ranks drift from one rank")
+        if name == "control" and state <= lim_state:
+            raise AssertionError(f"{label}: the control passes the gate")
+        out[name] = {"metrics": loss, "state": state, "where": where}
+    return out
+
+
+def run_dp(device, root: str, ref: dict) -> dict:
+    """Phase 11, on the one card. a. `train.main` at stage1_config, B=4,
+    DP_ST1_ITERS iterations: one rank twice (the card's spread), then 2 ranks
+    over gloo with CUDA tensors and a control with the BN sync off: the
+    batch-mean metrics and the final state (E0, BN statistics, Adam moments)
+    each within RESUME_FACTOR x the two runs' own spread (at least
+    RESUME_FLOOR) and the control outside; the same one-rank pair again in
+    deterministic mode (after d) says how much of the spread the
+    nondeterministic kernels carry. b. phase 10b's run
+    (`ref`) on 2 ranks and a control with the gradient averaging off,
+    against 10b's first run within 10b's limits, the control outside. c.
+    the flagship's bf16 image2image of 2 images on 2 ranks against one rank
+    inverting the same rows (TOL_DP_SERVING) and its B=2 call
+    (TOL_BF16_VS_F32_REL). d. one stage-1 iteration at world 1 under nccl
+    (torchrun, one rank) against two processes without a process group, all
+    in deterministic mode: every collective of the nccl rank an exact
+    identity, the forward (metrics, BN statistics) equal, the backward's
+    state within RESUME_FACTOR x the two runs' spread (the stage-1 backward
+    keeps atomics that no mode removes). Each multi-rank run's field launches per
+    iteration per rank; the per-rank launch shapes against their plain
+    versions. Returns the launches and the shapes."""
+    from e3dge_torch.runner import Runner
+    from e3dge_torch.training import train
+
+    t_phase = time.perf_counter()
+    shapes = dp_kernel_check(device)
+    gloo = ["--dist-backend", "gloo"]
+
+    # a. stage 1
+    st1 = [*DP_ST1_FLAGS, "--iters", str(DP_ST1_ITERS), *perceptual_files(root)]
+    a_work = {n: os.path.join(root, "dp", n) for n in ("st1_one_a", "st1_one_b", "st1_ranks", "st1_bn_off")}
+    ranks = start_ranks(root, "st1_ranks", {"kind": "train", "argv": [*st1, *gloo, "--work-dir",
+                                                                       a_work["st1_ranks"]]})
+    bn_off = start_ranks(root, "st1_bn_off", {"kind": "train", "control": "bn_sync_off",
+                                              "argv": [*st1, *gloo, "--work-dir", a_work["st1_bn_off"]]})
+    for name in ("st1_one_a", "st1_one_b"):
+        t0 = time.perf_counter()
+        if train.main([*st1, "--work-dir", a_work[name]]) != 0:
+            raise AssertionError(f"phase 11a run {name} failed")
+        log(f"  [11a] one rank, {name}: {time.perf_counter() - t0:.1f} s (in this process)")
+    st1_reports = wait_ranks(ranks)
+    wait_ranks(bn_off)
+    _, st1_spread, where = run_gap(a_work["st1_one_b"], a_work["st1_one_a"], 1, _st1_groups)
+    spread_loss = run_gap(a_work["st1_one_b"], a_work["st1_one_a"], 1, _st1_groups, skip=DP_NONLINEAR_METRICS)[0]
+    lim, lim_loss = (max(RESUME_FACTOR * x, RESUME_FLOOR) for x in (st1_spread, spread_loss))
+    log(f"  11a spread of two one-rank runs (cudnn.benchmark {torch.backends.cudnn.benchmark}): final state "
+        f"{st1_spread:.3e} ({where}), metrics {spread_loss:.3e}; limits {lim:.3e} and {lim_loss:.3e}")
+    gate_a = dp_gate("11a stage 1", a_work["st1_ranks"], a_work["st1_one_a"], 1, _st1_groups, lim_loss, lim,
+                     a_work["st1_bn_off"])
+    gate_a["spread"] = {"metrics": spread_loss, "state": st1_spread}
+    st1_per_iter = per_iteration(st1_reports, DP_ST1_ITERS)
+    log(f"  11a field launches per iteration per rank: {st1_per_iter}")
+
+    # b. stage 2.2, phase 10b's flags
+    st2_iters = int(ref["argv"][ref["argv"].index("--iters") + 1])
+    b_work = {n: os.path.join(root, "dp", n) for n in ("st2_ranks", "st2_grads_off")}
+    ranks = start_ranks(root, "st2_ranks", {"kind": "train", "argv": [*ref["argv"], *gloo, "--work-dir",
+                                                                       b_work["st2_ranks"]]})
+    grads_off = start_ranks(root, "st2_grads_off", {"kind": "train", "control": "grad_average_off",
+                                                    "argv": [*ref["argv"], *gloo, "--work-dir",
+                                                             b_work["st2_grads_off"]]})
+    st2_reports = wait_ranks(ranks)
+    wait_ranks(grads_off)
+    gate_b = dp_gate("11b stage 2.2", b_work["st2_ranks"], ref["work"], 1, _groups, ref["lim_loss"],
+                     ref["lim_state"], b_work["st2_grads_off"])
+    st2_per_iter = per_iteration(st2_reports, st2_iters)
+    log(f"  11b field launches per iteration per rank: {st2_per_iter}")
+    for work in (*a_work.values(), *b_work.values()):
+        shutil.rmtree(work)
+
+    # c. serving
+    serve = start_ranks(root, "serve_ranks", {"kind": "serve", "backend": "gloo"})
+    model, images, ml, noise = dp_serving_inputs(device)
+    runner = Runner(model, ml, device, work_dir=os.path.join(root, "dp"))
+
+    def gen_imgs(imgs, maps) -> np.ndarray:
+        return runner.image2image(imgs, noise=maps)["res_render_out"]["gen_imgs"].float().cpu().numpy()
+
+    with torch.no_grad():
+        batch = gen_imgs(images, noise)
+        rows = np.concatenate([gen_imgs(images[i:i + 1], [n[i:i + 1] for n in noise]) for i in range(DP_SERVE_BATCH)])
+    del model, runner
+    serve_reports = wait_ranks(serve)
+    got = np.load(os.path.join(root, "dp", "serve_ranks", "gen_imgs.npy"))
+    check_image(torch.from_numpy(got), batch.shape, "11c gen_imgs across ranks")
+    err = float(np.abs(got - rows).max())
+    rel = float(np.abs(got - batch).mean() / np.abs(batch).max())
+    log(f"  11c flagship bf16 image2image, B={DP_SERVE_BATCH} over {DP_RANKS} ranks: vs one rank inverting the same "
+        f"rows at B=1, max abs {err:.3e} [limit {TOL_DP_SERVING:g}]; vs one rank at B={DP_SERVE_BATCH}, mean "
+        f"relative {rel:.3e} [limit {TOL_BF16_VS_F32_REL:g}], max abs {float(np.abs(got - batch).max()):.3e} (one "
+        f"rank's rows at B=1 vs its B={DP_SERVE_BATCH} call: {float(np.abs(rows - batch).max()):.3e}); per rank "
+        f"{[round(r['call_ms'], 2) for r in serve_reports]} ms a call (2 ranks sharing the card over gloo), "
+        f"launches {serve_reports[0]['launches']}")
+    if not (err <= TOL_DP_SERVING and rel <= TOL_BF16_VS_F32_REL):
+        raise AssertionError("11c: image2image across ranks disagrees with one rank")
+
+    # d. NCCL at world 1
+    one_iter = [*DP_ST1_FLAGS, "--iters", "1", *perceptual_files(root)]
+    d_work = {n: os.path.join(root, "dp", n) for n in ("nccl_world1", "no_group_a", "no_group_b")}
+    d_runs = [start_ranks(root, "nccl_world1", {"kind": "train", "deterministic": True, "check_collectives": True,
+                                                "argv": [*one_iter, "--dist-backend", "nccl", "--work-dir",
+                                                         d_work["nccl_world1"]]}, nproc=1)]
+    d_runs += [start_ranks(root, n, {"kind": "train", "deterministic": True,
+                                     "argv": [*one_iter, "--work-dir", d_work[n]]}, nproc=None)
+               for n in ("no_group_a", "no_group_b")]
+    (nccl, alone, _) = (wait_ranks(r)[0] for r in d_runs)
+    # then 11a's one-rank pair in deterministic mode (five stage-1 processes
+    # at once do not fit beside this one's cached memory)
+    det_work = {n: os.path.join(root, "dp", n) for n in ("st1_det_a", "st1_det_b")}
+    for run in [start_ranks(root, n, {"kind": "train", "deterministic": True,
+                                      "argv": [*st1, "--work-dir", det_work[n]]}, nproc=None) for n in det_work]:
+        wait_ranks(run)
+    _, det_spread, det_where = run_gap(det_work["st1_det_b"], det_work["st1_det_a"], 1, _st1_groups)
+    log(f"  11a's one-rank pair ({DP_ST1_ITERS} iterations) in deterministic mode: final state {det_spread:.3e} "
+        f"({det_where}); in the default mode {st1_spread:.3e}")
+    gate_a["spread"]["state_deterministic"] = det_spread
+    nondet = sorted({line.split("does not have a deterministic")[0].split()[-1] for n in (*d_work, *det_work)
+                     for line in open(os.path.join(root, "dp", n, "output.log"))
+                     if "does not have a deterministic" in line})
+    coll = nccl.get("collectives", {})
+    log(f"  11d one iteration at world 1, deterministic mode: backend {nccl.get('backend')} (world "
+        f"{nccl.get('world_size')}) vs {alone.get('backend')} (no process group); the nccl rank's collectives "
+        f"{coll}; ops without a deterministic version: {nondet}")
+    if nccl.get("backend") != "nccl" or alone.get("backend") is not None:
+        raise AssertionError(f"11d: backends {nccl.get('backend')} and {alone.get('backend')}")
+    if not coll.get("calls") or coll.get("changed"):
+        raise AssertionError(f"11d: the collectives at world 1 are not exact identities: {coll}")
+    recs = {n: {k: v for k, v in json.loads(open(os.path.join(w, "metrics.jsonl")).readline()).items() if k != "time"}
+            for n, w in d_work.items()}
+    ga, gb, gc = (_st1_groups(d_work[n]) for n in d_work)
+    bn_equal = all(torch.equal(x, y) for x, y in zip(ga["BN statistics"], gb["BN statistics"]))
+    _, spread, where = run_gap(d_work["no_group_b"], d_work["no_group_a"], 1, _st1_groups)
+    _, gap, at = run_gap(d_work["nccl_world1"], d_work["no_group_a"], 1, _st1_groups)
+    lim = max(RESUME_FACTOR * spread, RESUME_FLOOR)
+    log(f"  11d the forward (logged metrics, BN statistics) equal to the run without a group: "
+        f"{recs['nccl_world1'] == recs['no_group_a']}, {bn_equal}; the backward's state (E0, the moments): gap "
+        f"{gap:.3e} ({at}), two runs without a group {spread:.3e} ({where}) [limit {lim:.3e}]")
+    if recs["nccl_world1"] != recs["no_group_a"] or not bn_equal or gap > lim:
+        raise AssertionError("11d: world 1 under nccl differs from the run without a process group")
+    for work in (*d_work.values(), *det_work.values()):
+        shutil.rmtree(work)
+    log(f"  phase 11: {time.perf_counter() - t_phase:.1f} s")
+    return {"shapes": shapes, "launches": {"dp_stage1_iteration_per_rank": st1_per_iter,
+                                           "dp_stage2_iteration_per_rank": st2_per_iter,
+                                           "dp_serving_per_rank": serve_reports[0]["launches"]},
+            "gates": {"11a": gate_a, "11b": gate_b, "11c": {"rows_max_abs": err, "batch_mean_rel": rel}}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2308,9 +2766,13 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="e3dge_train_") as root:
         log(f"  {shutil.disk_usage(root).free / 2**30:.1f} GiB free under {root} (the checkpoints take ~6 GiB)")
         tr = run_trainer(device, root, st2["ms"])
-        run_resume(device, root)
+        resume_ref = run_resume(device, root)
         ev_shapes += [{"label": label, **r} for label, r in now_kernel_check(device).items()]
         now = run_now(device, root)
+
+        log(f"[11] data parallelism across ranks on the one card (at {time.perf_counter() - t_start:.1f} s)")
+        dp = run_dp(device, root, resume_ref)
+    ev_shapes += [{"label": label, **r} for label, r in dp["shapes"].items()]
 
     def trainer_launches(entry, precision):
         """Phase 10's measured launches of one entry in one precision, by
@@ -2322,6 +2784,11 @@ def main() -> int:
     def eval_launches(entry, precision):
         """Phase 9's measured launches of one entry in one precision, by path."""
         return {f"eval_{m}" if m in EVAL_LAUNCHES else m: split[(entry, precision)] for m, split in ev.items()}
+
+    def dp_launches(entry, precision):
+        """Phase 11's launches per rank of one entry in one precision: per
+        iteration of the trainer's stages, per serving call."""
+        return {path: per.get(f"{entry}/{precision}", 0) for path, per in dp["launches"].items()}
 
     kernels = []
     for name in ("siren_field_full", "siren_field_tex"):
@@ -2341,6 +2808,7 @@ def main() -> int:
         })
         kernels[-1]["launches_by_path"].update(eval_launches(name, "serving"))
         kernels[-1]["launches_by_path"].update(trainer_launches(name, "serving"))
+        kernels[-1]["launches_by_path"].update(dp_launches(name, "serving"))
         kernels[-1]["shapes"] = [r for r in ev_shapes if r["entry"] == name and r["precision"] == "serving"]
     # the stage-1 path's kernel: the f32 entry of csrc/siren_field.cu at the
     # sample render's shape; launches over the measured steps (all `highest`)
@@ -2359,7 +2827,8 @@ def main() -> int:
                              "stage1_step": st1["per_step"]["siren_field_full"],
                              "stage2_iteration": st2["per_iter"]["siren_field_full"],
                              **eval_launches("siren_field_full", "highest"),
-                             **trainer_launches("siren_field_full", "highest")},
+                             **trainer_launches("siren_field_full", "highest"),
+                             **dp_launches("siren_field_full", "highest")},
         "launches_stage2": st2["launches"]["siren_field_full"],
     })
     # the texture entry in f32, on the stage-2 path (the D's fake producer):
@@ -2377,7 +2846,8 @@ def main() -> int:
         "launches_by_path": {"stage1_step": st1["per_step"]["siren_field_tex"],
                              "stage2_iteration": st2["per_iter"]["siren_field_tex"],
                              **eval_launches("siren_field_tex", "highest"),
-                             **trainer_launches("siren_field_tex", "highest")},
+                             **trainer_launches("siren_field_tex", "highest"),
+                             **dp_launches("siren_field_tex", "highest")},
     })
     log(f"image2image ms per inversion (flagship bf16, B=1): {inv_ms:.4f}; all phases {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
@@ -2387,5 +2857,35 @@ def main() -> int:
     return 0
 
 
+def phase11_only() -> int:
+    """Phases 1 and 2, phase 10b (phase 11b's reference) and phase 11 alone,
+    for iterating on phase 11: `python3 chip_smoke.py --phase 11`."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from e3dge_torch.ops import siren_field as sf
+
+    device = torch.device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    log(f"[1] card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    sf.build_library()
+    # TF32 off, as phase 3 leaves it for the phases after it
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    with tempfile.TemporaryDirectory(prefix="e3dge_train_") as root:
+        log("[10b] the reference runs")
+        ref = run_resume(device, root)
+        log("[11] data parallelism across ranks on the one card")
+        dp = run_dp(device, root, ref)
+    print(json.dumps({"phase11": {k: dp[k] for k in ("launches", "gates")},
+                      "shapes": {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms", "max_abs_err")}
+                                 for k, v in dp["shapes"].items()}}))
+    print(smi)
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    if len(sys.argv) == 3 and sys.argv[1] == "--rank-child":
+        sys.exit(rank_child(sys.argv[2]))
+    sys.exit(phase11_only() if sys.argv[1:] == ["--phase", "11"] else main())

@@ -15,6 +15,7 @@ from torch import nn
 from e3dge_torch.models.encoders.fpn import Conv2d
 from e3dge_torch.models.layers import ConvLayer, EqualLinear
 from e3dge_torch.ops import fused_leaky_relu
+from e3dge_torch.parallel import mesh
 
 VOLUME_D_CHANNELS = {2: 400, 4: 400, 8: 400, 16: 400, 32: 256, 64: 128, 128: 64}
 
@@ -127,7 +128,9 @@ class DiscResBlock(nn.Module):
 class Discriminator(nn.Module):
     """Full-resolution StyleGAN2 D with minibatch stddev (stylesdf_model.py:
     1541-1617) over [B, 3, input_size, input_size] images -> [B, 1] logits; B
-    must be a multiple of min(B, stddev_group)."""
+    must be a multiple of min(B, stddev_group). In a data-parallel step
+    (`parallel.mesh.sharded`) the stddev groups are the global batch's, as
+    JAX's D sees it, and the gradient crosses the ranks."""
 
     def __init__(self, input_size: int = 1024, channel_multiplier: int = 2, channel_base: int = 512,
                  stddev_group: int = 4):
@@ -148,8 +151,9 @@ class Discriminator(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = self.convs(x)
         b, c, h, w = out.shape
-        group = min(b, self.stddev_group)
-        y = out.reshape(group, -1, 1, c, h, w)
+        full = mesh.gather_rows(out)
+        group = min(full.shape[0], self.stddev_group)
+        y = full.reshape(group, -1, 1, c, h, w)
         stddev = torch.sqrt(y.var(dim=0, correction=0) + 1e-8).mean(dim=(2, 3, 4), keepdim=True).squeeze(2)
-        out = torch.cat([out, stddev.repeat(group, 1, h, w)], dim=1)
+        out = torch.cat([out, mesh.own_rows(stddev.repeat(group, 1, h, w))], dim=1)
         return self.final_linear(self.final_conv(out).reshape(b, -1))

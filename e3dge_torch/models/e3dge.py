@@ -40,6 +40,7 @@ from e3dge_torch.models.encoders.fpn import HybridGradualStyleEncoderV2
 from e3dge_torch.models.generator import Generator
 from e3dge_torch.models.pifu.local_net import LocalFeatureNet, points_in_image
 from e3dge_torch.ops import adaptive_avg_pool, pos_encoding, upsample_nearest
+from e3dge_torch.parallel import mesh
 from e3dge_torch.render.camera import CameraParams, camera_params_from_angles
 from e3dge_torch.utils.device import resolve_device
 
@@ -442,10 +443,15 @@ class E3DGE(nn.Module):
         "azim" / "elev" [B] standard normals, "near_noise" [B, res, res, 3]
         standard normals, "uniform_pts" [B, n, 3] points in the box. `noise`
         gives the decoder noise maps (JAX's stage-1 step renders the sample and
-        the inversion with the same "noise" rng, so the same maps)."""
+        the inversion with the same "noise" rng, so the same maps).
+
+        In a data-parallel step (`parallel.mesh.sharded`) batch_size is the
+        global batch: every draw is made at it, z paired first, and the result
+        holds this rank's rows; `noise` holds its rows already."""
         c, dev = self.cfg, self.device
         draws = draws or {}
         res, n_uni = c.renderer.out_im_res, c.renderer.uniform_grid_sampling_num
+        b = mesh.local_batch(batch_size, pairs=pair_same_id)
 
         def draw(name, shape):
             return draws[name].to(dev) if name in draws else torch.randn(shape, device=dev, generator=generator)
@@ -458,6 +464,7 @@ class E3DGE(nn.Module):
             (torch.rand(batch_size, n_uni, 3, device=dev, generator=generator) * 2 - 1) * r
         if pair_same_id:  # make_pair_same_noise (training_utils.py:21-29)
             z = z[::2].repeat_interleave(2, dim=0)
+        z, azim_n, elev_n, near_noise, uni_pts = (mesh.own_rows(t) for t in (z, azim_n, elev_n, near_noise, uni_pts))
         cc = c.camera
         azim = cc.azim_mean + pose_scale * cc.azim_range * azim_n
         elev = cc.elev_mean + pose_scale * cc.elev_range * elev_n
@@ -468,7 +475,7 @@ class E3DGE(nn.Module):
         renderer = self.generator.renderer
         near_pts, near_sdf, near_valid = renderer.sample_near_surface_grid(
             render_out["xyz"], w, stdv=c.renderer.surface_sampling_stdv, noise=near_noise)
-        uni_pts, uni_sdf, uni_valid = renderer.sample_uniform_grid(batch_size, n_uni, w, pts=uni_pts)
+        uni_pts, uni_sdf, uni_valid = renderer.sample_uniform_grid(b, n_uni, w, pts=uni_pts)
         return {
             "images": render_out["gen_imgs"],
             "thumb_images": render_out["gen_thumb_imgs"],

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from e3dge_torch.ops import blur, fused_leaky_relu, make_kernel, upsample2x
+from e3dge_torch.parallel import mesh
 
 
 def pixel_norm(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -130,7 +131,8 @@ class NoiseInjection(nn.Module):
                 generator: torch.Generator | None = None) -> torch.Tensor:
         if noise is None:
             b, _, h, w = image.shape
-            noise = torch.randn(b, 1, h, w, device=image.device, dtype=image.dtype, generator=generator)
+            noise = mesh.draw_rows(
+                lambda s: torch.randn(s, device=image.device, dtype=image.dtype, generator=generator), (b, 1, h, w))
         return image + self.weight.to(image.dtype) * noise.to(image.dtype)
 
 

@@ -33,6 +33,7 @@ from e3dge_torch.config import RendererConfig
 from e3dge_torch.models.siren import SirenGenerator
 from e3dge_torch.ops import grid_sample
 from e3dge_torch.ops.siren_field import io_dtype, siren_field_full, siren_field_tex
+from e3dge_torch.parallel import mesh
 from e3dge_torch.render.camera import CameraParams
 from e3dge_torch.render.integrate import volume_integrate
 from e3dge_torch.render.rays import get_rays, rays_to_points, sample_z_vals
@@ -430,7 +431,8 @@ class VolumeFeatureRenderer(nn.Module):
         draw; else it comes from `generator` on the styles' device."""
         r = self.camera_dist_radius
         if pts is None:
-            pts = (torch.rand(batch, n, 3, device=styles.device, generator=generator) * 2 - 1) * r
+            pts = (mesh.draw_rows(lambda s: torch.rand(s, device=styles.device, generator=generator), (batch, n, 3))
+                   * 2 - 1) * r
         sdf = self.query_sdf(pts, styles)
         return pts, sdf, torch.ones_like(sdf)
 
@@ -442,7 +444,8 @@ class VolumeFeatureRenderer(nn.Module):
         a mask of those inside the box (`:540-549`, reference
         volume_renderer.py:965-1003). noise, if given, is the N(0, 1) draw."""
         if noise is None:
-            noise = torch.randn(surface_xyz.shape, device=surface_xyz.device, generator=generator)
+            noise = mesh.draw_rows(lambda s: torch.randn(s, device=surface_xyz.device, generator=generator),
+                                   surface_xyz.shape)
         pts = surface_xyz + stdv * noise
         valid = (pts.abs().amax(dim=-1, keepdim=True) < self.camera_dist_radius).to(pts.dtype)
         return pts, self.query_sdf(pts, styles), valid

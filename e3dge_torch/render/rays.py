@@ -6,6 +6,8 @@ from __future__ import annotations
 
 import torch
 
+from e3dge_torch.parallel import mesh
+
 
 def get_rays(focal: torch.Tensor, c2w: torch.Tensor, res: int, static_viewdirs: bool = False):
     """World rays through every pixel centre -> rays_o, rays_d, viewdirs, each
@@ -62,8 +64,8 @@ def sample_z_vals(
         upper = torch.cat([mids, z_vals[..., -1:]], dim=-1)
         lower = torch.cat([z_vals[..., :1], mids], dim=-1)
         u_shape = (b, h, w, n_samples)
-    if u is None:
-        u = torch.rand(u_shape, device=near.device, generator=generator)
+    if u is None:  # in a data-parallel step, this rank's rows of the global draw
+        u = mesh.draw_rows(lambda s: torch.rand(s, device=near.device, generator=generator), u_shape)
     if tuple(u.shape) != u_shape:
         raise ValueError(f"the jitter draw has shape {tuple(u.shape)}, expected {u_shape}")
     return lower + (upper - lower) * u

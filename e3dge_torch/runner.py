@@ -26,6 +26,7 @@ import torch
 
 from e3dge_torch.models.e3dge import E3DGE, LatentMeans
 from e3dge_torch.ops import adaptive_avg_pool
+from e3dge_torch.parallel import mesh as dp
 from e3dge_torch.render.camera import CameraParams, camera_params_from_angles
 from e3dge_torch.training import losses as L
 from e3dge_torch.training.data import EvalImageDataset
@@ -40,7 +41,9 @@ class Runner:
     `device` (None: the card; the constructor raises without one). The model
     and the mean latents are moved to the device. Artifacts go under
     `work_dir`; `lpips_fn` and `id_fn` (`training.perceptual`) add the LPIPS
-    and identity columns to the scores and LPIPS to projection's objective."""
+    and identity columns to the scores and LPIPS to projection's objective.
+    With a `world` of several ranks (`parallel.mesh`, imported as `dp`), `image2image` serves
+    a global batch data-parallel; every other entry point is per rank."""
 
     def __init__(
         self,
@@ -50,8 +53,10 @@ class Runner:
         work_dir: str | Path = "runs/e3dge",
         lpips_fn: Callable | None = None,
         id_fn: Callable | None = None,
+        world: dp.World | None = None,
     ):
         self.device = resolve_device(device)
+        self.world = world
         self.model = model.to(self.device)
         self.model.device = self.device
         self.cfg = model.cfg
@@ -97,12 +102,23 @@ class Runner:
 
     def image2image(self, images: torch.Tensor, noise=None) -> dict[str, Any]:
         """Invert and reconstruct: the full E1 path, or `image2image_global`
-        for a model without the local branch."""
+        for a model without the local branch. Across the runner's ranks,
+        images (and noise) are the global batch on every rank: each rank
+        inverts its rows, and `gen_imgs` comes back for the whole batch on
+        every rank (the other outputs are the rank's rows)."""
         images = images.to(self.device)
         noise = self._noise(noise, images.shape[0])
+        w = self.world
+        if w is not None and w.size > 1:
+            images, noise = dp.shard_rows(images, w), [dp.shard_rows(n, w) for n in noise]
         if self.cfg.renderer.enable_local_model:
-            return self.model.image2image(images, self.mean_latents, noise=noise)
-        return self.model.image2image_global(images, self.mean_latents, noise=noise)
+            out = self.model.image2image(images, self.mean_latents, noise=noise)
+            rec = out["res_render_out"]
+        else:
+            out = rec = self.model.image2image_global(images, self.mean_latents, noise=noise)
+        if w is not None and w.size > 1:
+            rec["gen_imgs"] = dp.gather_rows(rec["gen_imgs"], w)
+        return out
 
     def encode_ref(self, images: torch.Tensor) -> dict[str, Any]:
         return self.model.encode_ref_images(images.to(self.device), self.mean_latents)

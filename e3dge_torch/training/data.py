@@ -14,6 +14,8 @@ from typing import Iterator, Sequence
 
 import numpy as np
 
+from e3dge_torch.parallel import mesh
+
 IMG_EXTS = {".png", ".jpg", ".jpeg", ".webp", ".bmp"}
 
 
@@ -80,11 +82,14 @@ class ImageFolderDataset:
         return len(self.paths)
 
     def __getitem__(self, i: int) -> dict[str, np.ndarray]:
+        return self._item(i, self.rng.rand() < 0.5)
+
+    def _item(self, i: int, flip: bool) -> dict[str, np.ndarray]:
         img = load_image(self.paths[i], self.size)
         out: dict[str, np.ndarray] = {}
         if self.lms_root is not None:
             out["lms"] = landmark_heatmaps(np.load(self.lms_root / (self.paths[i].stem + ".npy")), self.size)
-        if self.rng.rand() < 0.5:
+        if flip:
             img = img[:, :, ::-1].copy()
             if "lms" in out:
                 out["lms"] = out["lms"][:, :, ::-1].copy()
@@ -92,13 +97,20 @@ class ImageFolderDataset:
         out.update(image=img, thumb=img.reshape(3, self.thumb_size, f, self.thumb_size, f).mean((2, 4)))
         return out
 
-    def iter_batches(self, batch_size: int, seed: int) -> Iterator[dict]:
-        """Endless full batches; each pass in a new order from RandomState(seed)."""
+    def iter_batches(self, batch_size: int, seed: int, world=None) -> Iterator[dict]:
+        """Endless full batches; each pass in a new order from RandomState(seed).
+        Across `world`'s ranks (`parallel.mesh.World`) batch_size is the global
+        batch: each rank reads only its rows of it, flipped as one process
+        would flip them (the flips of the whole batch are drawn in order)."""
         order_rng = np.random.RandomState(seed)
         while True:
             order = order_rng.permutation(len(self))
             for s in range(0, len(order) - batch_size + 1, batch_size):
-                items = [self[int(j)] for j in order[s : s + batch_size]]
+                rows = order[s : s + batch_size]
+                flips = self.rng.rand(batch_size) < 0.5
+                if world is not None:
+                    rows, flips = mesh.shard_rows(rows, world), mesh.shard_rows(flips, world)
+                items = [self._item(int(j), f) for j, f in zip(rows, flips)]
                 yield {k: np.stack([it[k] for it in items]) for k in items[0]}
 
 

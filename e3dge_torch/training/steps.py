@@ -18,6 +18,12 @@ Each E step is split into a loss over a given batch (`stage1_loss`,
 JAX's batch. The discriminators train only inside their own steps: outside
 them their parameters are frozen, so the E step differentiates through them
 without giving them gradients.
+
+Across ranks (`world`, `parallel.mesh`), each step runs in the rank's
+`mesh.sharded` scope: its batch size is the global one, every draw is made
+at it and the rank keeps its rows, BatchNorm and the D's minibatch stddev
+take global statistics, the gradients are averaged over the ranks before
+the optimizer step, and the metrics are their means over the ranks.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from torch import nn
 
 from e3dge_torch.models.volume_renderer import eikonal_term
 from e3dge_torch.ops import adaptive_avg_pool
+from e3dge_torch.parallel import mesh
 from e3dge_torch.training import losses as L
 from e3dge_torch.training.train_utils import ema_update, make_noise
 
@@ -322,9 +329,11 @@ def stage1_loss(
 
 
 def decoder_noise(model, batch_size: int, generator: torch.Generator | None = None) -> list[torch.Tensor]:
-    """One set of decoder noise maps for a step, on the model's device."""
+    """One set of decoder noise maps for a step, on the model's device; in a
+    data-parallel step, this rank's rows of the global batch's maps."""
     d = model.cfg.decoder
-    return make_noise(d.size, d.in_res, batch_size, generator=generator, device=model.device)
+    maps = make_noise(d.size, d.in_res, batch_size, generator=generator, device=model.device)
+    return [mesh.own_rows(n) for n in maps]
 
 
 def make_stage1_step(
@@ -334,20 +343,25 @@ def make_stage1_step(
     lpips_fn: Callable | None = None,
     id_fn: Callable | None = None,
     pose_scale_schedule: Callable[[int], float] = lambda step: 1.0,
+    world: mesh.World | None = None,
 ):
     """train_step(mean_latents, batch_size, generator=None) -> metrics: one
     set of decoder noise maps (JAX renders the sample and the inversion with
     the same noise rng), a frozen-GAN batch from `synthetic_sample` at the
-    schedule's pose scale, `stage1_loss`, its backward and `optimizer_step`."""
+    schedule's pose scale, `stage1_loss`, its backward, the gradients
+    averaged over `world`'s ranks and `optimizer_step`."""
 
     def train_step(mean_latents, batch_size: int, generator: torch.Generator | None = None):
-        noise = decoder_noise(model, batch_size, generator)
-        batch = model.synthetic_sample(batch_size, pose_scale_schedule(state.step), generator=generator, noise=noise)
-        loss, metrics, _ = stage1_loss(model, batch, mean_latents, lambdas, lpips_fn, id_fn, noise=noise)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        with mesh.sharded(world):
+            noise = decoder_noise(model, batch_size, generator)
+            batch = model.synthetic_sample(batch_size, pose_scale_schedule(state.step), generator=generator,
+                                           noise=noise)
+            loss, metrics, _ = stage1_loss(model, batch, mean_latents, lambdas, lpips_fn, id_fn, noise=noise)
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        mesh.all_reduce_grads(state.params.values(), world)
         optimizer_step(state)
-        return {k: v.detach() for k, v in metrics.items()}
+        return mesh.reduce_metrics({k: v.detach() for k, v in metrics.items()}, world)
 
     return train_step
 
@@ -420,8 +434,9 @@ def cycle_loss(
     `adaptive_params` (the probe: the `local` parameters) the adversarial
     term is weighted by clip(|d loss_2d| / (|d adv| + 1e-4), 0,
     disc_weight_max) over them, taken from this one forward by two
-    retain-graph pulls, as a constant. Returns (loss, metrics, the query
-    render's output)."""
+    retain-graph pulls (in a data-parallel step, averaged over the ranks
+    before the norms, as JAX's global-batch gradients), as a constant.
+    Returns (loss, metrics, the query render's output)."""
     ref_info = model.encode_ref_images(batch["images"], mean_latents, batch["cam_settings"], train=True)
     que_out = model.que_render_given_ref(ref_info, swap_tree(batch["cam_settings"]), train=True,
                                          use_ref_view_weight=use_ref_view_weight, noise=noise)
@@ -435,8 +450,9 @@ def cycle_loss(
         adv = L.g_nonsaturating_loss(d_fn(rec_256))
         weight = 1.0
         if adaptive_params is not None:
-            weight = L.calculate_adaptive_weight(_grads(loss_2d, adaptive_params), _grads(adv, adaptive_params),
-                                                 disc_weight_max)
+            g_rec, g_adv = _grads(loss_2d, adaptive_params), _grads(adv, adaptive_params)
+            mesh.all_reduce_mean_([*g_rec, *g_adv], mesh.active())
+            weight = L.calculate_adaptive_weight(g_rec, g_adv, disc_weight_max)
             m["d_weight"] = weight
         loss = loss + lambdas["adv_lambda"] * weight * adv
         m["loss_e_adv"] = adv
@@ -467,26 +483,31 @@ def make_cycle_step(
     use_ref_view_weight: bool = False,
     d_fn: Callable[[torch.Tensor], torch.Tensor] | None = None,
     adaptive_d_loss: bool = False,
+    world: mesh.World | None = None,
 ):
     """train_step(mean_latents, batch_size, generator=None) -> metrics: one
     set of decoder noise maps, an identity-paired frozen-GAN batch at the
     schedule's pose scale, `cycle_loss` (the adaptive weight probed at the
-    `local` parameters, as JAX's default probe), its backward,
-    `optimizer_step` with the EMA (`steps.py:367-559`)."""
+    `local` parameters, as JAX's default probe), its backward, the gradients
+    averaged over `world`'s ranks, `optimizer_step` with the EMA
+    (`steps.py:367-559`). Each rank needs an even number of rows (the pairs
+    are swapped within a rank)."""
     probe = None
     if adaptive_d_loss and d_fn is not None and lambdas.get("adv_lambda", 0.0) > 0:
         probe = [p for k, p in state.params.items() if k.startswith("local.")]
 
     def train_step(mean_latents, batch_size: int, generator: torch.Generator | None = None):
-        noise = decoder_noise(model, batch_size, generator)
-        batch = model.synthetic_sample(batch_size, pose_scale_schedule(state.step), pair_same_id=True,
-                                       generator=generator, noise=noise)
-        loss, metrics, _ = cycle_loss(model, batch, mean_latents, lambdas, lpips_fn, id_fn, use_ref_view_weight,
-                                      d_fn, probe, noise=noise)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        with mesh.sharded(world):
+            noise = decoder_noise(model, batch_size, generator)
+            batch = model.synthetic_sample(batch_size, pose_scale_schedule(state.step), pair_same_id=True,
+                                           generator=generator, noise=noise)
+            loss, metrics, _ = cycle_loss(model, batch, mean_latents, lambdas, lpips_fn, id_fn, use_ref_view_weight,
+                                          d_fn, probe, noise=noise)
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        mesh.all_reduce_grads(state.params.values(), world)
         optimizer_step(state)
-        return {k: v.detach() for k, v in metrics.items()}
+        return mesh.reduce_metrics({k: v.detach() for k, v in metrics.items()}, world)
 
     return train_step
 
@@ -495,39 +516,48 @@ def make_cycle_step(
 
 
 @torch.no_grad()
-def full_d_batch(model, mean_latents, batch_size: int, d_res: int, generator: torch.Generator | None = None):
+def full_d_batch(model, mean_latents, batch_size: int, d_res: int, generator: torch.Generator | None = None,
+                 world: mesh.World | None = None):
     """(fakes, reals) for the full-res D at d_res^2: a fresh frozen-GAN batch
     and its reconstruction by `image2image` at the batch's cameras, with one
-    set of decoder noise maps (scripts/train.py:316-334)."""
-    noise = decoder_noise(model, batch_size, generator)
-    b = model.synthetic_sample(batch_size, 1.0, generator=generator, noise=noise)
-    out = model.image2image(b["images"], mean_latents, b["cam_settings"], noise=noise)
+    set of decoder noise maps (scripts/train.py:316-334); across `world`'s
+    ranks, this rank's rows of the global batch."""
+    with mesh.sharded(world):
+        noise = decoder_noise(model, batch_size, generator)
+        b = model.synthetic_sample(batch_size, 1.0, generator=generator, noise=noise)
+        out = model.image2image(b["images"], mean_latents, b["cam_settings"], noise=noise)
     return adaptive_avg_pool(out["res_render_out"]["gen_imgs"], d_res), adaptive_avg_pool(b["images"], d_res)
 
 
 @torch.no_grad()
-def volume_d_batch(model, mean_latents, batch_size: int, generator: torch.Generator | None = None):
+def volume_d_batch(model, mean_latents, batch_size: int, generator: torch.Generator | None = None,
+                   world: mesh.World | None = None):
     """(real thumbs, fake thumbs, the fakes' viewpoints) for the volume D: the
     global reconstruction of one frozen-GAN batch at its known cameras, and
     the thumbs of another (scripts/train.py:349-373; the second batch's render
-    stops before the decoder, whose output the D does not see)."""
-    noise = decoder_noise(model, batch_size, generator)
-    b = model.synthetic_sample(batch_size, 1.0, generator=generator, noise=noise)
-    out = model.image2image_global(b["images"], mean_latents, b["cam_settings"], noise=noise)
-    reals = model.synthetic_sample(batch_size, 1.0, renderer_only=True, generator=generator)
+    stops before the decoder, whose output the D does not see); across
+    `world`'s ranks, this rank's rows of the global batches."""
+    with mesh.sharded(world):
+        noise = decoder_noise(model, batch_size, generator)
+        b = model.synthetic_sample(batch_size, 1.0, generator=generator, noise=noise)
+        out = model.image2image_global(b["images"], mean_latents, b["cam_settings"], noise=noise)
+        reals = model.synthetic_sample(batch_size, 1.0, renderer_only=True, generator=generator)
     return reals["thumb_images"], out["gen_thumb_imgs"], b["cam_settings"].viewpoint
 
 
-def make_volume_d_step(model, lambdas: dict[str, float], optimizer: torch.optim.Optimizer):
+def make_volume_d_step(model, lambdas: dict[str, float], optimizer: torch.optim.Optimizer,
+                       world: mesh.World | None = None):
     """train_step(real_thumbs, fake_thumbs, fake_viewpoints) -> metrics: the
     volume D's logistic loss * discriminator_lambda, the viewpoint regression
     on the fake thumbs (whose cameras are known) * viewpoint_lambda, and
     r1/2 * R1 on the real thumbs (`steps.py:587-629`, reference
-    trainer.py:1165-1186); `optimizer` holds the volume D's parameters."""
+    trainer.py:1165-1186); `optimizer` holds the volume D's parameters. Across
+    `world`'s ranks the thumbs are this rank's rows and the D's gradients are
+    averaged, so every rank's E step sees the same D."""
     d = model.volume_discriminator
 
     def train_step(real_thumbs, fake_thumbs, fake_viewpoints):
-        with _trainable(d):
+        with _trainable(d), mesh.sharded(world):
             real_pred, _ = d(real_thumbs)
             fake_pred, fake_vp = d(fake_thumbs)
             d_gan = L.d_logistic_loss(real_pred, fake_pred)
@@ -540,9 +570,10 @@ def make_volume_d_step(model, lambdas: dict[str, float], optimizer: torch.optim.
             metrics["d_loss"] = loss
             optimizer.zero_grad(set_to_none=True)
             loss.backward()
+            mesh.all_reduce_grads(d.parameters(), world)
             optimizer.step()
             optimizer.zero_grad(set_to_none=True)
-        return {k: v.detach() for k, v in metrics.items()}
+        return mesh.reduce_metrics({k: v.detach() for k, v in metrics.items()}, world)
 
     return train_step
 
@@ -571,16 +602,18 @@ def create_d_state(d: nn.Module, lr: float, optimizer: str = "adam") -> DState:
     return DState(step=0, d=d, optimizer=make_optimizer(list(d.parameters()), lr, optimizer))
 
 
-def make_full_d_step(lambdas: dict[str, float], state: DState, d_reg_every: int = 16):
+def make_full_d_step(lambdas: dict[str, float], state: DState, d_reg_every: int = 16,
+                     world: mesh.World | None = None):
     """train_step(real_imgs, fake_imgs) -> metrics: the full-res D's logistic
     loss * discriminator_lambda on reals against (detached) fakes, plus every
     `d_reg_every` steps the lazy R1 on the reals scaled by r1 * 0.5 *
     d_reg_every (`steps.py:645-703`, reference trainer.py:1119-1165); "r1" is
-    0 on the other steps."""
+    0 on the other steps. Across `world`'s ranks the images are this rank's
+    rows and the D's gradients, R1's included, are averaged."""
     d = state.d
 
     def train_step(real_imgs, fake_imgs):
-        with _trainable(d):
+        with _trainable(d), mesh.sharded(world):
             real_pred, fake_pred = d(real_imgs), d(fake_imgs.detach())
             d_gan = L.d_logistic_loss(real_pred, fake_pred)
             loss = d_gan * lambdas.get("discriminator_lambda", 1.0)
@@ -593,9 +626,10 @@ def make_full_d_step(lambdas: dict[str, float], state: DState, d_reg_every: int 
                     loss = loss + (r1 * 0.5 * d_reg_every) * metrics["r1"]
             state.optimizer.zero_grad(set_to_none=True)
             loss.backward()
+            mesh.all_reduce_grads(d.parameters(), world)
             state.optimizer.step()
             state.optimizer.zero_grad(set_to_none=True)
         state.step += 1
-        return {k: v.detach() for k, v in metrics.items()}
+        return mesh.reduce_metrics({k: v.detach() for k, v in metrics.items()}, world)
 
     return train_step

@@ -10,6 +10,7 @@ train_ae.py, scripts/train/ffhq/stage{1,2.1,2.2}.sh), with its services.
         --fix-ada --ema --pose-curriculum --data ffhq/ --val-data celebahq_test/ --work-dir runs/stage22
     python -m e3dge_torch.training.train --stage 2.2 ... --resume runs/stage22/models_latest
     python -m e3dge_torch.training.train --tiny --iters 2 --batch 2 --device cpu --work-dir runs/st1_tiny
+    python -m torch.distributed.run --standalone --nproc_per_node 4 -m e3dge_torch.training.train --batch 16 ...
 
 The model is `stage1_config` / `stage2_config` (or `tiny_test_config` /
 `tiny_full_config` with --tiny) on seeded weights (`init_weights`); the
@@ -33,7 +34,16 @@ warm-starts the variables only, where their shapes match, from a
 models_<name> directory or from the `<module>.pt` files of the earlier layout
 (`utils.checkpoint.warm_start_checkpoint`), so stage 1 -> 2.1 -> 2.2 chain.
 --debug-nans turns on torch's anomaly mode. The device defaults to the card
-and raises without one. Not here: sharding across cards.
+and raises without one.
+
+Under torchrun (RANK, WORLD_SIZE, LOCAL_RANK set) the run is data-parallel
+over the ranks (`parallel.mesh`), each on card LOCAL_RANK mod the visible
+cards, over --dist-backend (nccl on cards, gloo on the CPU or for ranks that
+share a card): --batch stays the global batch and each rank takes its rows,
+so n ranks compute what one process computes on that batch. The model and
+both Ds start from rank 0's; only rank 0 prints, logs, writes panels,
+validates and saves, while the others wait; --resume loads on every rank.
+The `sp` (ray) axis of the JAX mesh is not ported.
 """
 
 from __future__ import annotations
@@ -45,6 +55,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from e3dge_torch.parallel import mesh
 
 # --flag -> the step's lambda name
 LAMBDA_FLAGS = {
@@ -86,7 +98,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--lr", type=float, default=5e-5, help="the reference stage scripts' 5e-5")
     ap.add_argument("--optimizer", default="adam", choices=["adam", "ranger"])
     ap.add_argument("--tiny", action="store_true", help="tiny_test_config / tiny_full_config")
-    ap.add_argument("--device", default=None, help="default: the CUDA card")
+    ap.add_argument("--device", default=None, help="default: the CUDA card (under torchrun, LOCAL_RANK's)")
+    ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                    help="the ranks' backend under torchrun (default: nccl on cards, gloo on the CPU)")
     ap.add_argument("--ckpt", default=None,
                     help="warm-start the variables from an earlier run's models_<name> directory (or the <module>.pt "
                          "files of the earlier layout) where their shapes match; the optimizer starts fresh")
@@ -190,7 +204,18 @@ def main(argv=None) -> int:
 
 
 def train(args: argparse.Namespace) -> int:
-    """The run `main` parses: set-up, resume, the iterations and services."""
+    """The run `main` parses, on this process's ranks (none under no
+    launcher): `run` between joining the process group and leaving it, on
+    an exception too."""
+    world = mesh.init_distributed(args.dist_backend, device=args.device)
+    try:
+        return run(args, world)
+    finally:
+        mesh.shutdown(world)
+
+
+def run(args: argparse.Namespace, world: mesh.World) -> int:
+    """Set-up, resume, the iterations and services on `world`'s rank."""
     from e3dge_torch.models.discriminator import Discriminator
     from e3dge_torch.models.e3dge import E3DGE
     from e3dge_torch.runner import Runner
@@ -201,13 +226,16 @@ def train(args: argparse.Namespace) -> int:
     from e3dge_torch.utils.logger import MetricLogger, print_parameter
     from e3dge_torch.utils.weights import init_weights
 
+    main_rank = world.is_main
+    say = print if main_rank else (lambda *a, **k: None)
     stage1 = args.stage == "1"
     cfg = make_config(args)
-    model = E3DGE(cfg, device=args.device)
+    model = E3DGE(cfg, device=world.device)
     dev = model.device
     init_weights(model, args.seed)
     if args.ckpt:
         warm_start_checkpoint(model, args.ckpt)
+    mesh.replicate(model, world)
     lambdas = dict(steps.STAGE1_LAMBDAS if stage1 else STAGE2_LAMBDAS[args.stage])
     for flag, name in LAMBDA_FLAGS.items():
         if getattr(args, flag) is not None:
@@ -217,7 +245,7 @@ def train(args: argparse.Namespace) -> int:
     lpips_fn = id_fn = None
     if lambdas.get("lpips_lambda", 0) > 0 or lambdas.get("id_lambda", 0) > 0:
         if not (args.lpips_ckpt or args.arcface_ckpt):
-            print("WARNING: LPIPS/ID lambdas active without --lpips-ckpt/--arcface-ckpt; using RANDOM-INIT "
+            say("WARNING: LPIPS/ID lambdas active without --lpips-ckpt/--arcface-ckpt; using RANDOM-INIT "
                   "perceptual nets (smooth surrogates, NOT the reference objective)", flush=True)
         lpips_fn, id_fn = make_perceptual_fns(dev, seed=args.seed, lpips_ckpt=args.lpips_ckpt,
                                               arcface_ckpt=args.arcface_ckpt)
@@ -226,9 +254,10 @@ def train(args: argparse.Namespace) -> int:
     trainable = {"1": steps.STAGE1_TRAINABLE, "2.1": steps.STAGE21_TRAINABLE,
                  "2.2": steps.stage22_trainable(args.fix_ada)}[args.stage]
     state = steps.create_train_state(model, trainable, args.lr, args.optimizer, ema=args.ema)
-    print_parameter(state.params)  # the trainable audit (reference trainer.py:753-757)
-    print(f"lambdas: { {k: v for k, v in lambdas.items() if v} }")
-    print(f"dtypes: compute={cfg.dtype} field={cfg.renderer.field_dtype} "
+    if main_rank:
+        print_parameter(state.params)  # the trainable audit (reference trainer.py:753-757)
+    say(f"lambdas: { {k: v for k, v in lambdas.items() if v} }")
+    say(f"dtypes: compute={cfg.dtype} field={cfg.renderer.field_dtype} "
           f"frozen-teacher-sampling={cfg.renderer.sample_field_dtype}", flush=True)
     schedule = steps.pose_curriculum() if args.pose_curriculum else (lambda step: 1.0)
     bs = args.batch
@@ -238,30 +267,36 @@ def train(args: argparse.Namespace) -> int:
     if args.stage == "2.2" and args.adv_lambda > 0:
         d = Discriminator(d_res).to(dev)
         init_weights(d, args.seed + 3)
+        mesh.replicate(d, world)
         d_state = steps.create_d_state(d, args.lr * args.d_reg_every / (args.d_reg_every + 1))
         d_lambda = args.discriminator_lambda if args.discriminator_lambda is not None else args.adv_lambda
-        d_step = steps.make_full_d_step(dict(discriminator_lambda=d_lambda, r1=args.r1), d_state, args.d_reg_every)
+        d_step = steps.make_full_d_step(dict(discriminator_lambda=d_lambda, r1=args.r1), d_state, args.d_reg_every,
+                                        world)
         if args.data:
             # the thumb is not used here; at most d_res, so --tiny's 32^2 D can read a folder (JAX's 64 cannot)
             ds = ImageFolderDataset(args.data, size=d_res, thumb_size=min(64, d_res),
                                     rng=np.random.RandomState(args.seed))
-            real_iter = ds.iter_batches(bs, args.seed)
+            real_iter = ds.iter_batches(bs, args.seed, world)
         else:
-            print("WARNING: --adv-lambda set without --data; using frozen-GAN samples as D reals "
+            say("WARNING: --adv-lambda set without --data; using frozen-GAN samples as D reals "
                   "(smoke mode: the reference trains the D against FFHQ)", flush=True)
     if args.train_volume_d:
         vd_state = steps.create_volume_d_state(model, args.lr)
         vd_step = steps.make_volume_d_step(
-            model, dict(discriminator_lambda=1.0, viewpoint_lambda=args.view_lambda, r1=args.r1), vd_state.optimizer)
+            model, dict(discriminator_lambda=1.0, viewpoint_lambda=args.view_lambda, r1=args.r1), vd_state.optimizer,
+            world)
 
     if stage1:
-        step = steps.make_stage1_step(model, lambdas, state, lpips_fn, id_fn, schedule)
+        step = steps.make_stage1_step(model, lambdas, state, lpips_fn, id_fn, schedule, world)
     else:
         step = steps.make_cycle_step(model, lambdas, state, lpips_fn, id_fn, schedule, args.use_ref_view_weight,
-                                     d_fn=None if d_state is None else d_state.d, adaptive_d_loss=args.adaptive_d_loss)
+                                     d_fn=None if d_state is None else d_state.d, adaptive_d_loss=args.adaptive_d_loss,
+                                     world=world)
 
     def mean_latents():
-        return model.mean_latent(MEAN_LATENT_SAMPLES, stream_generator(dev, args.seed, MEAN_LATENT_KEY))
+        ml = model.mean_latent(MEAN_LATENT_SAMPLES, stream_generator(dev, args.seed, MEAN_LATENT_KEY))
+        mesh.broadcast_(list(ml), world)
+        return ml
 
     def d_bundle():
         """Both D states ride the checkpoint as one bundle (scripts/train.py:403-407)."""
@@ -276,10 +311,11 @@ def train(args: argparse.Namespace) -> int:
                              "(use --ckpt for a variables-only warm start)")
         start_it = state.step
         runner.mean_latents = mean_latents()
-        print(f"resumed from {args.resume} at iter {start_it}", flush=True)
+        say(f"resumed from {args.resume} at iter {start_it}", flush=True)
     ml = runner.mean_latents
-    print(f"stage {args.stage}: {'tiny' if args.tiny else 'full width'} on {dev}, batch {bs}, {args.optimizer} "
-          f"lr {args.lr}, trainable {trainable}", flush=True)
+    ranks = f" ({world.size} ranks, {bs // world.size} rows each)" if world.size > 1 else ""
+    say(f"stage {args.stage}: {'tiny' if args.tiny else 'full width'} on {dev}, batch {bs}{ranks}, {args.optimizer} "
+        f"lr {args.lr}, trainable {trainable}", flush=True)
 
     logger = MetricLogger(args.work_dir, use_wandb=args.wandb, config={"stage": args.stage, "cfg": cfg.to_dict()})
     t0 = time.perf_counter()
@@ -287,32 +323,41 @@ def train(args: argparse.Namespace) -> int:
     for it in range(start_it, args.iters):
         gen_d, gen_vd, gen_e = (stream_generator(dev, args.seed, it, s) for s in (D_STREAM, VD_STREAM, E_STREAM))
         if d_step is not None and it % args.d_interval == 0:
-            fakes, reals = steps.full_d_batch(model, ml, bs, d_res, gen_d)
+            fakes, reals = steps.full_d_batch(model, ml, bs, d_res, gen_d, world)
             if real_iter is not None:
                 reals = torch.from_numpy(next(real_iter)["image"]).to(dev)
             d_metrics = d_step(reals, fakes)
         if vd_step is not None and it % args.d_interval == 0:
-            vd_metrics = vd_step(*steps.volume_d_batch(model, ml, bs, gen_vd))
+            vd_metrics = vd_step(*steps.volume_d_batch(model, ml, bs, gen_vd, world))
             vd_state.step += 1
         metrics = step(ml, bs, gen_e)
-        if (it + 1) % args.log_every == 0:
+        n = it + 1
+        if main_rank and n % args.log_every == 0:
             m = {k: float(v) for k, v in metrics.items()}
             m.update({f"d_{k}": float(v) for k, v in d_metrics.items()})
             m.update({f"vd_{k}": float(v) for k, v in vd_metrics.items()})
-            rate = (it + 1 - start_it) / (time.perf_counter() - t0)
+            rate = (n - start_it) / (time.perf_counter() - t0)
             extras = f" pose_scale={schedule(it):.2f}" if args.pose_curriculum else ""
-            print(f"iter {it + 1}: loss={m['loss']:.5f} ({rate:.3f} it/s){extras} "
+            print(f"iter {n}: loss={m['loss']:.5f} ({rate:.3f} it/s){extras} "
                   f"{ {k: round(v, 5) for k, v in m.items()} }", flush=True)
-            logger.log(it + 1, m)
-        if args.saveimg_every and (it + 1) % args.saveimg_every == 0:
-            save_train_panel(runner, it + 1, bs, args.seed)
-        if args.val_data and (it + 1) % args.val_every == 0:
-            print(f"iter {it + 1} validation: {runner.validation(args.val_data, batch_size=bs, max_images=8)}",
-                  flush=True)
-        if (it + 1) % args.ckpt_every == 0:
-            runner.save_checkpoint(state=state, name="latest", d_state=d_bundle())
-    path = runner.save_checkpoint(state=state, name="final", d_state=d_bundle())
-    print(f"done: saved {path}", flush=True)
+            logger.log(n, m)
+        panel = args.saveimg_every and n % args.saveimg_every == 0
+        val = args.val_data and n % args.val_every == 0
+        save = n % args.ckpt_every == 0
+        if main_rank:
+            if panel:
+                save_train_panel(runner, n, bs, args.seed)
+            if val:
+                print(f"iter {n} validation: {runner.validation(args.val_data, batch_size=bs, max_images=8)}",
+                      flush=True)
+            if save:
+                runner.save_checkpoint(state=state, name="latest", d_state=d_bundle())
+        if panel or val or save:
+            mesh.barrier(world)  # the other ranks wait for rank 0's services
+    if main_rank:
+        path = runner.save_checkpoint(state=state, name="final", d_state=d_bundle())
+        print(f"done: saved {path}", flush=True)
+    mesh.barrier(world)
     return 0
 
 
