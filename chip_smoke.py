@@ -108,21 +108,33 @@ Phases, each failing loudly (any failure exits non-zero before the last line):
      shape against the plain field, the launches per batch, a mesh per
      image, finite scores, ms per image in three parts, and
      `now_scan_error` card against CPU with a moved-mesh control;
- 11. data parallelism (`e3dge_torch.parallel`) on the one card: 2 ranks
-     over gloo with CUDA tensors, each run a torchrun process group of this
+ 11. data parallelism (`e3dge_torch.parallel`) on the one card, after a
+     one-rank reference (10b's flags at RANK_REF_ITERS iterations, run
+     SPREAD_RUNS times: the card's spread, whose RESUME_FACTOR x sets 11b's
+     and 12's limits): 2 ranks over gloo with CUDA tensors, each run a
+     torchrun process group of this
      script's `--rank-child SPEC` with its own time limit: a. train.main at
      stage1_config, B=4, 2 ranks against one rank within RESUME_FACTOR x
      two one-rank runs' spread (metrics and final state), a BN-sync-off
-     control outside, the one-rank pair's spread in deterministic mode; b. phase
-     10b's run on 2 ranks against 10b's first run within 10b's limits, a
+     control outside, the one-rank pair's spread in deterministic mode; b. the
+     reference's run on 2 ranks against its first run within its limits, a
      gradient-averaging-off control outside; c. the flagship's bf16
      image2image of 2 images across 2 ranks, equal to one rank's per-row
      inversions and within the bf16 limit of its B=2 call; d. one stage-1
      iteration under nccl at world 1: every collective an exact identity,
      the forward equal to runs without a process group, the backward within
      their spread; each run's field launches per rank per iteration and the
-     per-rank launch shapes against the plain field, timed.
-     `python3 chip_smoke.py --phase 11` runs phases 1, 2, 10b and 11 only.
+     per-rank launch shapes against the plain field, timed;
+ 12. the sp (ray) axis on the one card: the reference's run through
+     `train.main --sp 2` on a 1x2 (a) and a 2x2 (b) dp x sp world over gloo
+     (torchrun groups of --rank-child, as 11), each against the reference's
+     first run within its limits and beside a control with the sp
+     gradient sum of the ray gather off, which must fall outside; c. each world's field launches per rank
+     per iteration, and the per-rank launch shapes of the ray-split cycle
+     step (1x2, 2x2 and the four-card 1x4 of sp_scaling.py) against the
+     plain field, timed beside their bounds.
+     `python3 chip_smoke.py --phase 11` (or 12) runs phases 1, 2, the
+     reference and that phase only.
 Prints a `kernels` JSON line (with each entry's launches per path, and the
 `highest` entries the training paths launch), the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}.
@@ -132,6 +144,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -1401,9 +1414,9 @@ def st2_card_vs_cpu(device) -> None:
     branch on (the adversarial term at the adaptive weight, the exact ref-view
     weighting, both consistency terms, the aligner trained): the loss terms
     and the trainable gradient on the card, on the card with the SFT
-    modulations detached before the re-render (the control), on the CPU at
-    ST1_CPU_THREADS threads (the reference) and at 1 thread, each against the
-    reference, within phase 7's limits."""
+    modulations detached before the re-render (the control) and on the CPU at
+    ST1_CPU_THREADS threads (the reference), within phase 7's limits (phase
+    7's second CPU step at 1 thread reads the reference's own order)."""
     from unittest import mock
 
     from e3dge_torch.render.camera import CameraParams
@@ -1423,8 +1436,7 @@ def st2_card_vs_cpu(device) -> None:
     try:
         for name, dev, n_threads, cut in (("card", device, None, False),
                                           ("card, SFT detached", device, None, True),
-                                          ("CPU", torch.device("cpu"), ST1_CPU_THREADS, False),
-                                          ("CPU at 1 thread", torch.device("cpu"), 1, False)):
+                                          ("CPU", torch.device("cpu"), ST1_CPU_THREADS, False)):
             t0 = time.perf_counter()
             torch.set_num_threads(n_threads or threads)
             model, ml, lpips_fn, id_fn, state, d = st2_model(cfg, dev, steps.STAGE22_TRAINABLE, d_res)
@@ -1455,7 +1467,7 @@ def st2_card_vs_cpu(device) -> None:
     m_ref, g_ref = runs["CPU"]
     log("  terms card / CPU: " + ", ".join(f"{k} {runs['card'][0][k]:.6g} / {m_ref[k]:.6g}" for k in m_ref))
     gaps = {}
-    for name in ("card", "CPU at 1 thread", "card, SFT detached"):
+    for name in ("card", "card, SFT detached"):
         m, g = runs[name]
         term = max(abs(m[k] - m_ref[k]) / max(abs(m_ref[k]), 1e-6) for k in m_ref)
         gaps[name] = (term, *grad_gap(g, g_ref))
@@ -1896,6 +1908,14 @@ TR_FLAGS = ["--stage", "2.2", "--batch", str(ST2_BATCH), "--lr", str(ST2_LR), "-
 # sampling's backward accumulates by atomics, cuDNN's algorithms are not
 # fixed) times RESUME_FACTOR, at least RESUME_FLOOR (relative)
 RESUME_FACTOR, RESUME_FLOOR = 10.0, 1e-5
+# runs of one recipe on one rank that give the card's spread (10b, and the
+# rank reference of 11b and 12)
+SPREAD_RUNS = 3
+# phases 11b and 12 hold their rank runs to one-rank runs of phase 10b's
+# recipe at this depth: each iteration lets Adam's steps on the volume D's
+# near-zero gradients carry a rank run's other order of sums further from
+# one rank (rank_spread.py measures it at any depth)
+RANK_REF_ITERS = 2
 NOW_SUBJECTS, NOW_IMAGES, NOW_SCAN_POINTS, NOW_BATCH = 2, 2, 62_500, 2
 # field launches per NoW batch: the ref render (raw_h kept) and the SDF grid
 NOW_LAUNCHES_PER_BATCH = {"siren_field_full": 2, "siren_field_tex": 0}
@@ -2075,10 +2095,18 @@ def _groups(work: str) -> dict[str, list[torch.Tensor]]:
 def run_gap(a: str, b: str, first_step: int, groups=_groups, skip=()) -> tuple[float, float, str]:
     """(the largest relative gap of a logged metric from first_step on, the
     largest relative L2 gap of a final-state group, that group and that
-    metric) of run a against run b; the metrics in `skip` are not read."""
+    metric) of run a against run b; the metrics in `skip` are not read. A
+    metric's gap is relative to its largest magnitude over run b's logged
+    steps: the D scores cross zero, where a gap relative to the value itself
+    reads its rounding."""
     recs = [{r["step"]: r for r in map(json.loads, open(os.path.join(w, "metrics.jsonl")))} for w in (a, b)]
-    loss, metric = max((abs(recs[0][s][k] - v) / max(abs(v), 1e-6), f"{k}@{s}") for s, r in recs[1].items()
-                       if s >= first_step for k, v in r.items() if k not in ("step", "time", *skip))
+    scale = {}
+    for r in recs[1].values():
+        for k, v in r.items():
+            if k not in ("step", "time", *skip):
+                scale[k] = max(scale.get(k, 1e-6), abs(v))
+    loss, metric = max((abs(recs[0][s][k] - v) / scale[k], f"{k}@{s}") for s, r in recs[1].items()
+                       if s >= first_step for k, v in r.items() if k in scale)
     ga, gb = groups(a), groups(b)
     gaps = {}
     for name, want in gb.items():
@@ -2089,17 +2117,31 @@ def run_gap(a: str, b: str, first_step: int, groups=_groups, skip=()) -> tuple[f
     return loss, gaps[worst], f"{worst}; metric {metric}"
 
 
-def run_resume(device, root: str) -> dict:
+def spread_limits(works: list[str], what: str, skip=(), groups=_groups) -> tuple[float, float]:
+    """RESUME_FACTOR x the card's spread, at least RESUME_FLOOR: (metrics,
+    final state), the spread being the largest `run_gap` among the pairs of
+    `works`, runs of one recipe on one rank (one pair's gap is a single draw
+    of the card's nondeterminism, and can fall far below the others)."""
+    pairs = [run_gap(b, a, 1, groups, skip) for a, b in itertools.combinations(works, 2)]
+    spread_loss, spread_state = (max(p[i] for p in pairs) for i in (0, 1))
+    lim_loss, lim_state = (max(RESUME_FACTOR * x, RESUME_FLOOR) for x in (spread_loss, spread_state))
+    log(f"  spread of {len(works)} {what}: metrics {spread_loss:.3e}, final state {spread_state:.3e} (pairs: "
+        + "; ".join(f"{p[0]:.3e} / {p[1]:.3e} ({p[2]})" for p in pairs)
+        + f"); limits {lim_loss:.3e} and {lim_state:.3e}")
+    return lim_loss, lim_state
+
+
+def run_resume(device, root: str) -> None:
     """Phase 10b: `train.main` at phase 10a's configuration and switches
     plus --train-volume-d (both D states through the checkpoint), no
-    --data: TR_ITERS iterations twice (the card's spread), then half of them
-    with --ckpt-every, then --resume to TR_ITERS. The resumed run's logged
+    --data: TR_ITERS iterations SPREAD_RUNS times (the card's spread,
+    `spread_limits`), then half of them with --ckpt-every, then --resume to
+    TR_ITERS. The resumed run's logged
     metrics after the resume and its final state (trained modules, BN
     statistics, E optimizer moments, EMA, both Ds and their optimizers)
     against the first uninterrupted run, within RESUME_FACTOR x the spread
     (at least RESUME_FLOOR); a control resume that drops the E optimizer's
-    state must fall outside. Returns the first uninterrupted run's work
-    directory, its flags and both limits (phase 11b's reference)."""
+    state must fall outside."""
     from e3dge_torch.training import steps, train
 
     base = [*TR_FLAGS, "--train-volume-d", "--saveimg-every", "0", *perceptual_files(root)]
@@ -2115,8 +2157,7 @@ def run_resume(device, root: str) -> dict:
         runs[name] = work
         return work
 
-    run("whole_a", "--iters", str(TR_ITERS))
-    run("whole_b", "--iters", str(TR_ITERS))
+    wholes = [run(f"whole_{i}", "--iters", str(TR_ITERS)) for i in range(SPREAD_RUNS)]
     part = run("part", "--iters", str(half), "--ckpt-every", str(half))
     shutil.rmtree(os.path.join(part, "models_final"))  # the same state as models_latest
     latest = os.path.join(part, "models_latest")
@@ -2129,13 +2170,9 @@ def run_resume(device, root: str) -> dict:
 
     with patched(steps.TrainState, load_state_dict=no_optimizer):
         run("control", "--iters", str(TR_ITERS), "--resume", latest)
-    spread_loss, spread_state, spread_where = run_gap(runs["whole_b"], runs["whole_a"], 1)
-    lim_loss = max(RESUME_FACTOR * spread_loss, RESUME_FLOOR)
-    lim_state = max(RESUME_FACTOR * spread_state, RESUME_FLOOR)
-    log(f"  spread of two uninterrupted runs: metrics {spread_loss:.3e}, final state {spread_state:.3e} "
-        f"({spread_where}); limits {lim_loss:.3e} and {lim_state:.3e}")
+    lim_loss, lim_state = spread_limits(wholes, "uninterrupted runs")
     for name in ("part", "control"):
-        loss, state, where = run_gap(runs[name], runs["whole_a"], half + 1)
+        loss, state, where = run_gap(runs[name], wholes[0], half + 1)
         inside = loss <= lim_loss and state <= lim_state
         log(f"  {'resumed' if name == 'part' else 'control (E optimizer state dropped)'} vs uninterrupted: metrics "
             f"after the resume {loss:.3e} [limit {lim_loss:.3e}], final state {state:.3e} ({where}) "
@@ -2144,10 +2181,30 @@ def run_resume(device, root: str) -> dict:
             raise AssertionError("the resumed run drifts from the uninterrupted one")
         if name == "control" and state <= lim_state:
             raise AssertionError("the control resume without the optimizer state passes the resume gate")
-    for name in ("whole_b", "part", "control"):
-        shutil.rmtree(runs[name])
-    return {"work": runs["whole_a"], "argv": [*base, "--iters", str(TR_ITERS)], "lim_loss": lim_loss,
-            "lim_state": lim_state}
+    for work in set(runs.values()):
+        shutil.rmtree(work)
+
+
+def rank_reference(root: str) -> dict:
+    """The one-rank reference of phases 11b and 12: phase 10b's flags at
+    RANK_REF_ITERS iterations, run SPREAD_RUNS times in this process (the
+    card's spread). Returns the first run's work directory, its flags and
+    `spread_limits` (psnr not read, as the rank gates do not read it)."""
+    from e3dge_torch.training import train
+
+    argv = [*TR_FLAGS, "--train-volume-d", "--saveimg-every", "0", *perceptual_files(root),
+            "--iters", str(RANK_REF_ITERS)]
+    works = [os.path.join(root, "dp", f"one_rank_{i}") for i in range(SPREAD_RUNS)]
+    for work in works:
+        t0 = time.perf_counter()
+        if train.main([*argv, "--work-dir", work]) != 0:
+            raise AssertionError(f"the one-rank reference run {work} failed")
+        log(f"  one rank, {os.path.basename(work)}: {time.perf_counter() - t0:.1f} s (in this process)")
+    lim_loss, lim_state = spread_limits(works, f"one-rank runs ({RANK_REF_ITERS} iterations)", DP_NONLINEAR_METRICS)
+    for work in works[1:]:
+        shutil.rmtree(work)
+    torch.cuda.empty_cache()  # the rank runs after it share the card with this process
+    return {"work": works[0], "argv": argv, "lim_loss": lim_loss, "lim_state": lim_state}
 
 
 def write_now_layout(root: str) -> str:
@@ -2375,7 +2432,8 @@ def profile_window(spec: dict, rank: int, report: dict) -> None:
     """With SPEC's "profile_from" (an iteration), rank 0 of a trainer run
     profiles the card (torch.profiler, CUDA activity) from the first draw of
     that iteration to the final save and adds to `report` the window's host
-    ms, device busy ms and NCCL kernel ms per iteration ("window")."""
+    ms, device busy ms, NCCL kernel ms and field kernel ms per iteration
+    ("window")."""
     from torch.profiler import ProfilerActivity, profile
 
     from e3dge_torch.runner import Runner
@@ -2406,8 +2464,10 @@ def profile_window(spec: dict, rank: int, report: dict) -> None:
                        and "memset" not in ev.name.lower()]
             busy = sum(ev.time_range.elapsed_us() for ev in kernels) / 1e3
             nccl = sum(ev.time_range.elapsed_us() for ev in kernels if "nccl" in ev.name.lower()) / 1e3
+            field = sum(ev.time_range.elapsed_us() for ev in kernels if "siren_field" in ev.name) / 1e3
             report["window"] = {"ms_per_iter": window["ms"] / iters, "busy_ms_per_iter": busy / iters,
-                                "nccl_ms_per_iter": nccl / iters, "kernels": len(kernels)}
+                                "nccl_ms_per_iter": nccl / iters, "field_ms_per_iter": field / iters,
+                                "kernels": len(kernels)}
         return save(self, *args, **kwargs)
 
     train.stream_generator, Runner.save_checkpoint = generator, final_save
@@ -2437,6 +2497,8 @@ def rank_child(spec_path: str) -> int:
         mesh.mean_over_ranks = lambda x: x
     elif spec.get("control") == "grad_average_off":
         mesh.all_reduce_grads = lambda params, world: None
+    elif spec.get("control") == "sp_grad_sum_off":
+        mesh.gather_rays = sp_gather_without_grad_sum(mesh)
     report = {"rank": rank}
     init = mesh.init_distributed
 
@@ -2473,7 +2535,7 @@ def rank_child(spec_path: str) -> int:
             rc = 0
         finally:
             mesh.shutdown(world)
-    report.update(rc=rc, seconds=time.perf_counter() - t0,
+    report.update(rc=rc, seconds=time.perf_counter() - t0, peak_gib=peak_gib(),
                   launches={f"{e}/{p}": n for (e, p), n in sf.precision_launch_counts.items() if n})
     with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
         json.dump(report, f)
@@ -2532,7 +2594,7 @@ def per_iteration(reports: list[dict], iters: int) -> dict:
 
 
 def dp_gate(label: str, got: str, want: str, first_step: int, groups, lim_loss: float, lim_state: float,
-            control: str | None = None) -> dict:
+            control: str | None = None, ranks: str = "2 ranks") -> dict:
     """`run_gap` of run `got` (and of the control, which must fall outside)
     against `want`, the batch-mean metrics within lim_loss and the final
     state within lim_state."""
@@ -2542,11 +2604,11 @@ def dp_gate(label: str, got: str, want: str, first_step: int, groups, lim_loss: 
             continue
         loss, state, where = run_gap(work, want, first_step, groups, skip=DP_NONLINEAR_METRICS)
         inside = loss <= lim_loss and state <= lim_state
-        log(f"  {label}, {'2 ranks' if name == 'ranks' else 'control'} vs one rank: metrics {loss:.3e} [limit "
+        log(f"  {label}, {ranks if name == 'ranks' else 'control'} vs one rank: metrics {loss:.3e} [limit "
             f"{lim_loss:.3e}], final state {state:.3e} ({where}) [limit {lim_state:.3e}]: "
             f"{'inside' if inside else 'outside'}")
         if name == "ranks" and not inside:
-            raise AssertionError(f"{label}: 2 ranks drift from one rank")
+            raise AssertionError(f"{label}: {ranks} drift from one rank")
         if name == "control" and state <= lim_state:
             raise AssertionError(f"{label}: the control passes the gate")
         out[name] = {"metrics": loss, "state": state, "where": where}
@@ -2561,9 +2623,9 @@ def run_dp(device, root: str, ref: dict) -> dict:
     each within RESUME_FACTOR x the two runs' own spread (at least
     RESUME_FLOOR) and the control outside; the same one-rank pair again in
     deterministic mode (after d) says how much of the spread the
-    nondeterministic kernels carry. b. phase 10b's run
-    (`ref`) on 2 ranks and a control with the gradient averaging off,
-    against 10b's first run within 10b's limits, the control outside. c.
+    nondeterministic kernels carry. b. the one-rank reference's run (`ref`,
+    `rank_reference`) on 2 ranks and a control with the gradient averaging
+    off, against its first run within its limits, the control outside. c.
     the flagship's bf16 image2image of 2 images on 2 ranks against one rank
     inverting the same rows (TOL_DP_SERVING) and its B=2 call
     (TOL_BF16_VS_F32_REL). d. one stage-1 iteration at world 1 under nccl
@@ -2606,7 +2668,7 @@ def run_dp(device, root: str, ref: dict) -> dict:
     st1_per_iter = per_iteration(st1_reports, DP_ST1_ITERS)
     log(f"  11a field launches per iteration per rank: {st1_per_iter}")
 
-    # b. stage 2.2, phase 10b's flags
+    # b. stage 2.2, the one-rank reference's flags
     st2_iters = int(ref["argv"][ref["argv"].index("--iters") + 1])
     b_work = {n: os.path.join(root, "dp", n) for n in ("st2_ranks", "st2_grads_off")}
     ranks = start_ranks(root, "st2_ranks", {"kind": "train", "argv": [*ref["argv"], *gloo, "--work-dir",
@@ -2701,6 +2763,108 @@ def run_dp(device, root: str, ref: dict) -> dict:
             "gates": {"11a": gate_a, "11b": gate_b, "11c": {"rows_max_abs": err, "batch_mean_rel": rel}}}
 
 
+# Phase 12: the sp (ray) axis on the one card: the one-rank reference's
+# stage-2.2 run (phase 10b's flags, stage2_config, B=4, TF32 off,
+# RANK_REF_ITERS iterations) on a 1x2 and a 2x2 dp x sp world over gloo,
+# each a torchrun group of --rank-child, against the reference's first run
+# within its limits (RESUME_FACTOR x the card's own spread), each with a
+# control
+SP_MESHES = (("12a", 1, 2), ("12b", 2, 2))
+# the per-rank launch shapes are also checked for the four-card 1x4 world
+# of sp_scaling.py
+SP_SHAPE_MESHES = ((1, 2), (2, 2), (1, 4))
+
+
+def sp_gather_without_grad_sum(mesh):
+    """Phase 12's control: `mesh.gather_rays` whose backward keeps the rank's
+    own rays' gradient instead of summing it over the sp group."""
+    gather = mesh.gather_rays
+
+    def gather_rays(x, dim=1):
+        w = mesh.ray_split()
+        if w is None:
+            return x
+        mine = mesh._placed(x, dim, w.sp_rank, w.sp)
+        return gather(x.detach(), dim) + (mine - mine.detach())
+
+    return gather_rays
+
+
+def sp_kernel_cases() -> list:
+    """The `highest` launch shapes of the ray-split cycle step per rank at
+    stage2_config, global B=ST2_BATCH, on SP_SHAPE_MESHES that no earlier
+    phase checks: (label, B, N, raw_h, SDF-only). Each rank renders H/sp of
+    the image's ray rows (the sample, ref and query renders; the query render
+    writes raw_h) and queries the SDF targets of its share (the near-surface
+    points of its rows, 1/sp of the uniform points). The D producers run
+    whole: phase 8's and 11's shapes."""
+    from e3dge_torch.config import stage2_config
+
+    c = stage2_config().renderer
+    n_img = c.out_im_res ** 2 * c.n_samples
+    # phase 8's and 11's SDF targets
+    seen = {(ST2_BATCH, c.out_im_res ** 2, False, True), (ST2_BATCH, c.uniform_grid_sampling_num, False, True),
+            (ST2_BATCH // 2, c.out_im_res ** 2 // 2, False, True)}
+    cases = []
+    for dp, sp in SP_SHAPE_MESHES:
+        b = ST2_BATCH // dp
+        for label, n, raw_h, sdf in (("ray-split sample / ref render", n_img // sp, False, False),
+                                     ("ray-split query render, raw_h out", n_img // sp, True, False),
+                                     ("near-surface SDF targets", c.out_im_res ** 2 // sp, False, True),
+                                     ("uniform SDF targets", c.uniform_grid_sampling_num // sp, False, True)):
+            if (b, n, raw_h, sdf) not in seen:
+                seen.add((b, n, raw_h, sdf))
+                cases.append((f"{dp}x{sp} {label}", b, n, raw_h, sdf))
+    return cases
+
+
+def sp_kernel_check(device) -> dict:
+    """`siren_field_full` in `highest` at `sp_kernel_cases()` against its
+    plain version, timed beside the bound; {label: figures}."""
+    out = {}
+    for label, batch, n, raw_h, sdf_only in sp_kernel_cases():
+        r = check_and_time_full(label, batch, n, False, "highest", device, sdf_only=sdf_only, raw_h=raw_h)
+        out[label] = {"entry": "siren_field_full", "precision": "highest", "batch": batch, "n": n, "raw_h": raw_h,
+                      "sdf_only": sdf_only, **r}
+    return out
+
+
+def run_sp(device, root: str, ref: dict) -> dict:
+    """Phase 12, on the one card: the one-rank reference's run (`ref`,
+    `rank_reference`: its flags, its first run and both limits) through
+    `train.main --sp 2` on a 1x2 (12a) and a 2x2 (12b) world over gloo with
+    CUDA tensors, each beside a control with the sp gradient sum off
+    (`sp_gather_without_grad_sum`): the batch-mean metrics and the final
+    state against the reference's first run within its limits, each control
+    outside; each world's field launches per rank per iteration. 12c: the per-rank launch shapes against their plain
+    versions, timed beside their bounds. Returns the launches, gates and
+    shapes."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()  # the ranks and controls of 12b, 8 processes, share the card with this one
+    shapes = sp_kernel_check(device)
+    iters = int(ref["argv"][ref["argv"].index("--iters") + 1])
+    launches, gates = {}, {}
+    for label, dp, sp in SP_MESHES:
+        name = f"{dp}x{sp}"
+        work = {k: os.path.join(root, "dp", f"sp_{name}_{k}") for k in ("ranks", "control")}
+        argv = [*ref["argv"], "--dist-backend", "gloo", "--sp", str(sp)]
+        runs = [start_ranks(root, f"sp_{name}_{k}", {"kind": "train", "argv": [*argv, "--work-dir", work[k]],
+                                                     **({"control": "sp_grad_sum_off"} if k == "control" else {})},
+                            nproc=dp * sp) for k in work]
+        reports = wait_ranks(runs[0])
+        wait_ranks(runs[1])
+        gates[label] = dp_gate(f"{label} stage 2.2 on {name}", work["ranks"], ref["work"], 1, _groups,
+                               ref["lim_loss"], ref["lim_state"], work["control"], ranks=f"{name} ranks")
+        launches[f"sp_{name}_stage2_iteration_per_rank"] = per_iteration(reports, iters)
+        log(f"  {label} field launches per iteration per rank: {launches[f'sp_{name}_stage2_iteration_per_rank']}; "
+            f"rank seconds {[round(r['seconds'], 1) for r in reports]}, peak GiB "
+            f"{[round(r['peak_gib'], 2) for r in reports]}")
+        for w in work.values():
+            shutil.rmtree(w)
+    log(f"  phase 12: {time.perf_counter() - t_phase:.1f} s")
+    return {"shapes": shapes, "launches": launches, "gates": gates}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2766,13 +2930,20 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="e3dge_train_") as root:
         log(f"  {shutil.disk_usage(root).free / 2**30:.1f} GiB free under {root} (the checkpoints take ~6 GiB)")
         tr = run_trainer(device, root, st2["ms"])
-        resume_ref = run_resume(device, root)
+        run_resume(device, root)
         ev_shapes += [{"label": label, **r} for label, r in now_kernel_check(device).items()]
         now = run_now(device, root)
 
         log(f"[11] data parallelism across ranks on the one card (at {time.perf_counter() - t_start:.1f} s)")
-        dp = run_dp(device, root, resume_ref)
+        rank_ref = rank_reference(root)
+        dp = run_dp(device, root, rank_ref)
+
+        log(f"[12] the sp (ray) axis: ray-split cycle steps on 1x2 and 2x2 worlds on the one card (at "
+            f"{time.perf_counter() - t_start:.1f} s)")
+        spr = run_sp(device, root, rank_ref)
     ev_shapes += [{"label": label, **r} for label, r in dp["shapes"].items()]
+    ev_shapes += [{"label": label, **r} for label, r in spr["shapes"].items()]
+    dp["launches"].update(spr["launches"])
 
     def trainer_launches(entry, precision):
         """Phase 10's measured launches of one entry in one precision, by
@@ -2786,8 +2957,8 @@ def main() -> int:
         return {f"eval_{m}" if m in EVAL_LAUNCHES else m: split[(entry, precision)] for m, split in ev.items()}
 
     def dp_launches(entry, precision):
-        """Phase 11's launches per rank of one entry in one precision: per
-        iteration of the trainer's stages, per serving call."""
+        """Phase 11's and 12's launches per rank of one entry in one
+        precision: per iteration of the trainer's stages, per serving call."""
         return {path: per.get(f"{entry}/{precision}", 0) for path, per in dp["launches"].items()}
 
     kernels = []
@@ -2857,9 +3028,10 @@ def main() -> int:
     return 0
 
 
-def phase11_only() -> int:
-    """Phases 1 and 2, phase 10b (phase 11b's reference) and phase 11 alone,
-    for iterating on phase 11: `python3 chip_smoke.py --phase 11`."""
+def phase_only(phase: str) -> int:
+    """Phases 1 and 2, the one-rank reference of 11b and 12
+    (`rank_reference`) and phase 11 or 12 alone, for iterating on it:
+    `python3 chip_smoke.py --phase 11` (or 12)."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -2873,14 +3045,15 @@ def phase11_only() -> int:
     sf.build_library()
     # TF32 off, as phase 3 leaves it for the phases after it
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    run = {"11": run_dp, "12": run_sp}[phase]
     with tempfile.TemporaryDirectory(prefix="e3dge_train_") as root:
-        log("[10b] the reference runs")
-        ref = run_resume(device, root)
-        log("[11] data parallelism across ranks on the one card")
-        dp = run_dp(device, root, ref)
-    print(json.dumps({"phase11": {k: dp[k] for k in ("launches", "gates")},
+        log("[11] the one-rank reference runs")
+        ref = rank_reference(root)
+        log(f"[{phase}] phase {phase} alone")
+        out = run(device, root, ref)
+    print(json.dumps({f"phase{phase}": {k: out[k] for k in ("launches", "gates")},
                       "shapes": {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms", "max_abs_err")}
-                                 for k, v in dp["shapes"].items()}}))
+                                 for k, v in out["shapes"].items()}}))
     print(smi)
     return 0
 
@@ -2888,4 +3061,6 @@ def phase11_only() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--rank-child":
         sys.exit(rank_child(sys.argv[2]))
-    sys.exit(phase11_only() if sys.argv[1:] == ["--phase", "11"] else main())
+    if len(sys.argv) == 3 and sys.argv[1] == "--phase" and sys.argv[2] in ("11", "12"):
+        sys.exit(phase_only(sys.argv[2]))
+    sys.exit(main())

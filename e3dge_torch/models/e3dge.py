@@ -23,6 +23,13 @@ its backbone, and the conditioned re-render runs the twin's texture head on
 it. `synthetic_sample` draws frozen-GAN training data under no_grad, through
 the kernel. With `train=False` (the default) the entry points serve under
 no_grad.
+
+Under the ray split of a cycle step (`parallel.mesh.sharded(world,
+rays=True)`, sp > 1) every G0 render returns its image maps whole and its
+per-ray outputs at the rank's rows, so the 2D work (E0, G1, the hourglass
+filters, the aligner) runs whole on each sp rank while the per-sample work
+(the lookups at the query points, SFT fusion, PE, the occlusion weighting,
+the conditioned re-render) runs on the rank's rays only.
 """
 
 from __future__ import annotations
@@ -328,7 +335,8 @@ class E3DGE(nn.Module):
         cam = ref_info["cam_settings"]
         que_pts = que_pts.detach()
         if c.occlusion_mode == "texture" and "global_render_out" in ref_info:
-            ref_vol = ref_info["global_render_out"]["hit_prob"].detach()
+            # the ref render's whole weight volume: a query point projects anywhere in it
+            ref_vol = mesh.gather_rays(ref_info["global_render_out"]["hit_prob"].detach())
             query = lambda p: renderer.query_hit_prob_texture(p, cam, ref_vol)  # noqa: E731
         else:
             styles = ref_info["pred_latents"][0].detach()
@@ -447,7 +455,12 @@ class E3DGE(nn.Module):
 
         In a data-parallel step (`parallel.mesh.sharded`) batch_size is the
         global batch: every draw is made at it, z paired first, and the result
-        holds this rank's rows; `noise` holds its rows already."""
+        holds this rank's rows; `noise` holds its rows already. Under the ray
+        split the render runs the rank's ray rows (images, thumbs, depth and
+        mask come back whole) and the 3D targets take the rank's share: the
+        near-surface points of its ray rows, its part of the uniform points;
+        the per-ray entries (xyz, sdf, points, z_vals, hit_prob) hold its
+        rows."""
         c, dev = self.cfg, self.device
         draws = draws or {}
         res, n_uni = c.renderer.out_im_res, c.renderer.uniform_grid_sampling_num
@@ -465,6 +478,7 @@ class E3DGE(nn.Module):
         if pair_same_id:  # make_pair_same_noise (training_utils.py:21-29)
             z = z[::2].repeat_interleave(2, dim=0)
         z, azim_n, elev_n, near_noise, uni_pts = (mesh.own_rows(t) for t in (z, azim_n, elev_n, near_noise, uni_pts))
+        near_noise, uni_pts = mesh.own_rays(near_noise), mesh.own_rays(uni_pts)
         cc = c.camera
         azim = cc.azim_mean + pose_scale * cc.azim_range * azim_n
         elev = cc.elev_mean + pose_scale * cc.elev_range * elev_n
@@ -475,7 +489,7 @@ class E3DGE(nn.Module):
         renderer = self.generator.renderer
         near_pts, near_sdf, near_valid = renderer.sample_near_surface_grid(
             render_out["xyz"], w, stdv=c.renderer.surface_sampling_stdv, noise=near_noise)
-        uni_pts, uni_sdf, uni_valid = renderer.sample_uniform_grid(b, n_uni, w, pts=uni_pts)
+        uni_pts, uni_sdf, uni_valid = renderer.sample_uniform_grid(b, uni_pts.shape[1], w, pts=uni_pts)
         return {
             "images": render_out["gen_imgs"],
             "thumb_images": render_out["gen_thumb_imgs"],

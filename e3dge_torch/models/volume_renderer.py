@@ -18,6 +18,12 @@ cached backbone (or, for a stage-2 re-render whose texture modulations need
 a gradient, runs the twin's texture head alone on it). On CPU tensors the
 same wrappers run their plain versions. The training parts: z-jitter (`forward(train=, generator=)`), the
 3D-supervision samplers and the module function `eikonal_term`.
+
+Under the ray split of a stage-2 cycle step (`parallel.mesh.sharded(world,
+rays=True)` on an sp axis > 1) `forward` and `render_from_backbone` run the
+rank's rows of the rays only (drawn at the whole image, `mesh.own_rays`):
+their per-ray and per-sample outputs hold those rows, and the image maps
+(`IMAGE_MAPS`) come back whole, gathered along H with autograd.
 """
 
 from __future__ import annotations
@@ -49,6 +55,21 @@ def field_precision(field_dtype: str | torch.dtype) -> str:
 
 def _t_vals(n: int, offset_sampling: bool, device) -> torch.Tensor:
     return torch.linspace(0.0, 1.0 - 1.0 / n if offset_sampling else 1.0, n, device=device)
+
+
+# the image maps of a render and their height axis, gathered whole under the
+# ray split (`_whole_maps`)
+IMAGE_MAPS = {"gen_thumb_imgs": 2, "features": 2, "depth": 1, "mask": 1}
+
+
+def _whole_maps(out: dict[str, Any]) -> dict[str, Any]:
+    """Under the ray split (`parallel.mesh.ray_split`) a render's image maps,
+    which 2D layers and losses read, gathered whole along H with autograd;
+    its per-ray and per-sample outputs keep the rank's rows."""
+    for k, dim in IMAGE_MAPS.items():
+        if out.get(k) is not None:
+            out[k] = mesh.gather_rays(out[k], dim=dim)
+    return out
 
 
 class VolumeFeatureRenderer(nn.Module):
@@ -190,8 +211,9 @@ class VolumeFeatureRenderer(nn.Module):
         b = rays_o.shape[0]
         if z_vals is None:
             perturb = c.perturb and train and generator is not None
-            z_vals = sample_z_vals(camera.near, camera.far, (b, res, res), c.n_samples, c.offset_sampling,
-                                   perturb=perturb, generator=generator)
+            z_vals = mesh.own_rays(sample_z_vals(camera.near, camera.far, (b, res, res), c.n_samples,
+                                                 c.offset_sampling, perturb=perturb, generator=generator))
+        rays_o, rays_d, viewdirs = (mesh.own_rays(t) for t in (rays_o, rays_d, viewdirs))
         pts = rays_to_points(rays_o, rays_d, z_vals)  # [B, H, W, S, 3]
         dirs = viewdirs[..., None, :].expand(pts.shape)
         precision = field_precision(field_dtype or c.field_dtype)
@@ -222,7 +244,7 @@ class VolumeFeatureRenderer(nn.Module):
         }
         if raw_h is not None:
             result["raw_h"] = raw_h
-        return result
+        return _whole_maps(result)
 
     def render_from_backbone(
         self,
@@ -258,9 +280,10 @@ class VolumeFeatureRenderer(nn.Module):
         weights = cached["hit_prob"]
         rgb = -1.0 + 2.0 * torch.sum(weights * torch.sigmoid(rgb_raw.reshape(*shp, 3)), dim=-2)
         out = dict(cached)
-        out["gen_thumb_imgs"] = rgb.permute(0, 3, 1, 2)
+        out["gen_thumb_imgs"] = mesh.gather_rays(rgb.permute(0, 3, 1, 2), dim=2)
         if self.cfg.output_features:
-            out["features"] = torch.sum(weights * feat.reshape(*shp, width).float(), dim=-2).permute(0, 3, 1, 2)
+            out["features"] = mesh.gather_rays(
+                torch.sum(weights * feat.reshape(*shp, width).float(), dim=-2).permute(0, 3, 1, 2), dim=2)
         return out
 
     # -- occlusion / visibility ------------------------------------------------

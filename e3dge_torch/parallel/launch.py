@@ -19,14 +19,14 @@ import torch
 import torch.multiprocessing as mp
 
 
-def _rank_main(fn, rank: int, n: int, args: tuple, init_method: str, device, results) -> None:
+def _rank_main(fn, rank: int, n: int, args: tuple, init_method: str, device, sp: int, results) -> None:
     from e3dge_torch.parallel import mesh
 
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(n), LOCAL_RANK=str(rank))
     torch.set_num_threads(1)
     world = None
     try:
-        world = mesh.init_distributed(device=device, init_method=init_method)
+        world = mesh.init_distributed(device=device, init_method=init_method, sp=sp)
         results.put((rank, True, fn(world, *args)))
     except BaseException:
         results.put((rank, False, traceback.format_exc()))
@@ -44,10 +44,11 @@ def _kill(procs) -> None:
 
 
 def spawn(fn: Callable, n: int, *args: Any, timeout: float, device=None,
-          rendezvous_dir: str | None = None) -> list[Any]:
+          rendezvous_dir: str | None = None, sp: int = 1) -> list[Any]:
     """[fn(world, *args) of rank 0, ..., rank n-1], each rank a process of
     the `spawn` start method with one intra-op thread, on `device` (None:
-    the rank's card, over nccl; "cpu": over gloo). fn and its results are
+    the rank's card, over nccl; "cpu": over gloo), the world a dp x sp mesh
+    (`mesh.init_distributed(sp=)`). fn and its results are
     pickled, so fn must be importable. Raises RuntimeError naming the rank
     and its traceback if a rank raises or exits without a result,
     TimeoutError after `timeout` seconds; either way every rank is ended
@@ -56,7 +57,7 @@ def spawn(fn: Callable, n: int, *args: Any, timeout: float, device=None,
     results = ctx.Queue()
     with tempfile.TemporaryDirectory(dir=rendezvous_dir, prefix="e3dge_rdzv_") as tmp:
         init_method = "file://" + os.path.join(tmp, "store")
-        procs = [ctx.Process(target=_rank_main, args=(fn, r, n, args, init_method, device, results))
+        procs = [ctx.Process(target=_rank_main, args=(fn, r, n, args, init_method, device, sp, results))
                  for r in range(n)]
         for p in procs:
             p.start()

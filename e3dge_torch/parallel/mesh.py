@@ -1,29 +1,52 @@
-"""The `dp` axis of `e3dge_tpu/parallel/mesh.py` over `torch.distributed`.
+"""The `dp` and `sp` axes of `e3dge_tpu/parallel/mesh.py` over
+`torch.distributed`.
 
 JAX shards the batch over a device mesh and XLA inserts the collectives. Here
 each rank is a process (started by `torchrun` or `launch.spawn`) holding a
 replica of the model, and the contract is JAX's: n ranks with a global batch
 B compute what one process computes on B, up to the order of reductions.
 
+The ranks form a dp x sp mesh laid out as JAX's `make_mesh(shape=(dp, sp))`
+lays out its devices, row-major: rank = dp_rank * sp + sp_rank. The ranks of
+one `sp` group (one dp_rank) hold the same rows of the batch; the ranks of
+one `dp` group (one sp_rank) hold the dp shards. Every batch mechanism below
+reads the dp coordinate, so at sp > 1 the sp ranks of a dp group repeat one
+shard's work unless a step splits it:
+
   * Random draws. Inside `sharded(world)` every draw of a step is made at the
-    global batch from the step's generator and each rank keeps its rows
-    (`draw_rows`, `own_rows`), so n ranks see the samples one process sees.
+    global batch from the step's generator and each rank keeps its dp rows
+    (`draw_rows`, `own_rows`), so the ranks see the samples one process sees.
   * Batch statistics. Inside `sharded`, BatchNorm in train mode averages its
-    moments over the ranks (`mean_over_ranks`, as flax's
+    moments over the dp group (`mean_over_ranks`, as flax's
     `BatchNorm(axis_name="dp")`), and the full-res D's minibatch stddev reads
-    the global batch (`gather_rows`); both carry their gradient across ranks.
-  * Gradients are summed over the ranks and divided by n before the optimizer
-    (`all_reduce_grads`) and metrics are averaged (`reduce_metrics`, the
-    reference's reduce_loss_dict); the replicas start from rank 0's
-    parameters (`replicate`).
+    the global batch (`gather_rows`, over the dp group); both carry their
+    gradient across the dp group. Over the whole world at sp > 1 each row
+    would count sp times: right in value for the mean, but its backward
+    would sum the gradient sp times.
+  * The ray split (`sharded(world, rays=True)`, the stage-2 cycle step: JAX's
+    `constrain_fn` puts "sp" on the image-height axis of the rendered maps).
+    Each sp rank renders its rows [r*H/sp, (r+1)*H/sp) of the rays
+    (`own_rays`) and every 2D layer or loss reads maps gathered whole along H
+    (`gather_rays`, a sum over the sp group of zero-padded copies). The
+    gather's backward sums the incoming gradient over the sp group, so a
+    per-sample parameter's gradient on each rank is sp times its rays' share,
+    and a 2D parameter's is the whole gradient on each of the sp ranks:
+    either way the world's sum is sp times the dp shards' sum, and
+  * gradients are summed over the world and divided by its size before the
+    optimizer (`all_reduce_grads`): the mean over the dp shards at any sp.
+    Metrics are averaged over the world (`reduce_metrics`, the reference's
+    reduce_loss_dict; the sp ranks of a shard hold equal values), and the
+    replicas start from rank 0's parameters (`replicate`).
 
 Only `all_reduce` and `broadcast` are used: gloo has no all_gather of CUDA
 tensors, and two ranks that share one card must talk over gloo (NCCL refuses
-two ranks on one GPU). The `sp` (ray) axis is not ported.
+two ranks on one GPU). At sp = 1 no subgroup is built and every collective
+runs over the world.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from contextlib import contextmanager
 from contextvars import ContextVar
@@ -43,18 +66,45 @@ BUCKET_BYTES = 64 << 20
 
 @dataclass(frozen=True)
 class World:
-    """This process's place among the ranks. `group`: `init_distributed`
-    started a process group that joins them, so the collectives run (at size
-    1 too), and `shutdown` ends it."""
+    """This process's place among the ranks: a dp x sp mesh, row-major as
+    JAX's `make_mesh(shape=(dp, sp))`. `group`: `init_distributed` started a
+    process group that joins them, so the collectives run (at size 1 too),
+    and `shutdown` ends it; `dp_group` and `sp_group` are this rank's
+    subgroups (None: the world, or no collective over that axis at sp = 1)."""
 
     rank: int = 0
     size: int = 1
     device: torch.device = field(default_factory=lambda: torch.device("cpu"))
     group: bool = False
+    sp: int = 1
+    dp_group: Any = field(default=None, compare=False, repr=False)
+    sp_group: Any = field(default=None, compare=False, repr=False)
+
+    def __post_init__(self):
+        check_sp(self.size, self.sp)
 
     @property
     def is_main(self) -> bool:
         return self.rank == 0
+
+    @property
+    def dp(self) -> int:
+        return self.size // self.sp
+
+    @property
+    def dp_rank(self) -> int:
+        return self.rank // self.sp
+
+    @property
+    def sp_rank(self) -> int:
+        return self.rank % self.sp
+
+
+def check_sp(size: int, sp: int) -> None:
+    """A world of `size` ranks splits into dp x sp only if sp divides it."""
+    if sp < 1 or size % sp:
+        raise ValueError(f"a world of {size} ranks (WORLD_SIZE) does not split into an sp axis of {sp}: sp must be "
+                         f"a divisor of the world size")
 
 
 def _rank_device(device, local_rank: int) -> torch.device:
@@ -68,17 +118,21 @@ def _rank_device(device, local_rank: int) -> torch.device:
     return resolve_device(device)
 
 
-def init_distributed(backend: str | None = None, device=None, init_method: str | None = None) -> World:
+def init_distributed(backend: str | None = None, device=None, init_method: str | None = None, sp: int = 1) -> World:
     """This process's `World`, from the launcher's RANK, WORLD_SIZE and
     LOCAL_RANK. Without them it is a world of one on `resolve_device(device)`
     and no process group starts. With them the process group starts on
     `backend` (None: nccl on a card, gloo on the CPU) through `init_method`
-    (None: env://, torchrun's MASTER_ADDR and MASTER_PORT), and the rank's
-    card becomes the current one. nccl on the CPU raises: no backend is
-    swapped for another."""
+    (None: env://, torchrun's MASTER_ADDR and MASTER_PORT), the rank's
+    card becomes the current one, and at sp > 1 the dp x sp subgroups are
+    built (`split_world`). nccl on the CPU raises: no backend is swapped
+    for another. A world size that sp does not divide raises before any
+    process group starts."""
     if "WORLD_SIZE" not in os.environ:
+        check_sp(1, sp)
         return World(device=resolve_device(device))
     rank, size = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    check_sp(size, sp)
     local = int(os.environ.get("LOCAL_RANK", rank))
     dev = _rank_device(device, local)
     backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
@@ -92,7 +146,22 @@ def init_distributed(backend: str | None = None, device=None, init_method: str |
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     dist.init_process_group(backend, init_method=init_method or "env://", rank=rank, world_size=size, **kwargs)
-    return World(rank, size, dev, group=True)
+    return split_world(World(rank, size, dev, group=True), sp)
+
+
+def split_world(world: World, sp: int) -> World:
+    """`world` (a started process group) as a dp x sp mesh: every rank
+    builds, in the same order, the sp group of each dp_rank (ranks [d*sp,
+    (d+1)*sp)) and then the dp group of each sp_rank (ranks s, s + sp, ...),
+    and keeps its own. At sp = 1 it builds none: the dp group is the world."""
+    check_sp(world.size, sp)
+    if sp == 1:
+        return dataclasses.replace(world, sp=1, dp_group=None, sp_group=None)
+    dp = world.size // sp
+    sp_groups = [dist.new_group(list(range(d * sp, (d + 1) * sp))) for d in range(dp)]
+    dp_groups = [dist.new_group(list(range(s, world.size, sp))) for s in range(sp)]
+    return dataclasses.replace(world, sp=sp, dp_group=dp_groups[world.rank % sp],
+                               sp_group=sp_groups[world.rank // sp])
 
 
 def shutdown(world: World | None) -> None:
@@ -113,26 +182,26 @@ def barrier(world: World | None) -> None:
 
 
 def shard_size(n_rows: int, world: World, pairs: bool = False, shape: Sequence[int] | None = None) -> int:
-    """The rows each rank takes of a leading axis of n_rows. An uneven split
-    raises, naming the shape and the dp size (`e3dge_tpu/parallel/mesh.py:
-    78-84`); with `pairs` so does an odd number of rows per rank: the cycle
-    stages swap rows 0<->1, 2<->3, ... within a rank (`steps._swap_odd_even`),
-    where JAX's GSPMD swaps across shards."""
+    """The rows each dp shard takes of a leading axis of n_rows. An uneven
+    split raises, naming the shape and the dp size (`e3dge_tpu/parallel/
+    mesh.py:78-84`); with `pairs` so does an odd number of rows per shard: the
+    cycle stages swap rows 0<->1, 2<->3, ... within a rank
+    (`steps._swap_odd_even`), where JAX's GSPMD swaps across shards."""
     shape = tuple(shape) if shape is not None else (n_rows,)
-    if n_rows % world.size:
+    if n_rows % world.dp:
         raise ValueError(f"shard_batch: leading axis {n_rows} of leaf shape {shape} is not divisible by the dp "
-                         f"size {world.size}; pick a batch size divisible by the number of ranks")
-    b = n_rows // world.size
+                         f"size {world.dp}; pick a batch size divisible by the number of dp shards")
+    b = n_rows // world.dp
     if pairs and b % 2:
-        raise ValueError(f"shard_batch: leaf shape {shape} gives {b} rows to each of {world.size} ranks; the cycle "
+        raise ValueError(f"shard_batch: leaf shape {shape} gives {b} rows to each of {world.dp} ranks; the cycle "
                          f"stages pair rows within a rank, so each rank needs an even number")
     return b
 
 
 def shard_rows(x, world: World, pairs: bool = False):
-    """Rank r's rows [r*b, (r+1)*b) of x (a tensor or an array)."""
+    """dp shard d's rows [d*b, (d+1)*b) of x (a tensor or an array)."""
     b = shard_size(x.shape[0], world, pairs, x.shape)
-    return x[world.rank * b:(world.rank + 1) * b]
+    return x[world.dp_rank * b:(world.dp_rank + 1) * b]
 
 
 def _map(fn: Callable, tree):
@@ -156,23 +225,34 @@ def shard_batch(tree: Any, world: World, pairs: bool = False) -> Any:
 # ---------------------------------------------------- the sharded step scope
 
 _ACTIVE: ContextVar[World | None] = ContextVar("e3dge_torch_dp_world", default=None)
+_RAYS: ContextVar[bool] = ContextVar("e3dge_torch_ray_split", default=False)
 
 
 @contextmanager
-def sharded(world: World | None):
+def sharded(world: World | None, rays: bool = False):
     """The scope of one data-parallel step over `world` (a world of one, or
-    None, changes nothing): draws keep this rank's rows of the global batch,
-    BatchNorm and the D's minibatch stddev take global statistics."""
+    None, changes nothing): draws keep this rank's dp rows of the global
+    batch, BatchNorm and the D's minibatch stddev take global statistics.
+    `rays` splits the G0 renders' rays over the sp axis (`ray_split`)."""
     token = _ACTIVE.set(world if world is not None and world.size > 1 else None)
+    token_rays = _RAYS.set(rays)
     try:
         yield
     finally:
+        _RAYS.reset(token_rays)
         _ACTIVE.reset(token)
 
 
 def active() -> World | None:
     """The world of the enclosing `sharded` scope (None outside one or at size 1)."""
     return _ACTIVE.get()
+
+
+def ray_split() -> World | None:
+    """The active world when the enclosing scope splits the rays over an sp
+    axis of more than one rank, else None."""
+    w = active()
+    return w if w is not None and w.sp > 1 and _RAYS.get() else None
 
 
 def local_batch(batch_size: int, pairs: bool = False) -> int:
@@ -193,42 +273,81 @@ def draw_rows(draw: Callable[[tuple], torch.Tensor], shape: Sequence[int]) -> to
     w = active()
     if w is None:
         return draw(tuple(shape))
-    return shard_rows(draw((shape[0] * w.size, *shape[1:])), w)
+    return shard_rows(draw((shape[0] * w.dp, *shape[1:])), w)
 
 
 class _SumOverRanks(torch.autograd.Function):
-    """all_reduce(SUM) with autograd: the backward sums the incoming
-    gradients over the ranks (itself differentiable, for R1's double
-    backward); as `torch.distributed.nn.functional.all_reduce`, without its
-    deprecation warning."""
+    """all_reduce(SUM) over `group` (None: the world) with autograd: the
+    backward sums the incoming gradients over the same ranks (itself
+    differentiable, for R1's double backward); as
+    `torch.distributed.nn.functional.all_reduce`, without its deprecation
+    warning."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group=None):
+        ctx.group = group
         x = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(x)
+        dist.all_reduce(x, group=group)
         return x
 
     @staticmethod
     def backward(ctx, grad):
-        return _SumOverRanks.apply(grad)
+        return _SumOverRanks.apply(grad, ctx.group), None
 
 
 def mean_over_ranks(x: torch.Tensor) -> torch.Tensor:
-    """The mean of x over the active scope's ranks, with autograd."""
+    """The mean of x over the active scope's dp shards, with autograd."""
     w = active()
-    return x if w is None else _SumOverRanks.apply(x) / w.size
+    return x if w is None or w.dp == 1 else _SumOverRanks.apply(x, w.dp_group) / w.dp
+
+
+def _placed(x: torch.Tensor, dim: int, index: int, parts: int) -> torch.Tensor:
+    """x at block `index` of `parts` equal blocks along dim, zeros elsewhere."""
+    n = x.shape[dim]
+    shape = list(x.shape)
+    before, after = shape.copy(), shape.copy()
+    before[dim], after[dim] = index * n, (parts - index - 1) * n
+    return torch.cat([x.new_zeros(before), x, x.new_zeros(after)], dim=dim)
 
 
 def gather_rows(x: torch.Tensor, world: World | None = None) -> torch.Tensor:
-    """The global batch of a per-rank tensor (rank r's rows at [r*b,
-    (r+1)*b)), by a sum over the ranks of zero-padded copies, with autograd;
-    `world` or the active scope's (none: x itself)."""
+    """The global batch of a per-shard tensor (dp shard d's rows at [d*b,
+    (d+1)*b)), by a sum over the dp group of zero-padded copies, with
+    autograd; `world` or the active scope's (none, or one dp shard: x)."""
     w = world if world is not None and world.size > 1 else active()
+    if w is None or w.dp == 1:
+        return x
+    return _SumOverRanks.apply(_placed(x, 0, w.dp_rank, w.dp), w.dp_group)
+
+
+def ray_bounds(n: int, world: World) -> tuple[int, int]:
+    """This rank's rows [lo, hi) of an axis of n split over the sp axis; an
+    uneven split raises, naming n and sp."""
+    if n % world.sp:
+        raise ValueError(f"the ray split needs the image height (or point count) H={n} divisible by sp={world.sp}")
+    b = n // world.sp
+    return world.sp_rank * b, (world.sp_rank + 1) * b
+
+
+def own_rays(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """This sp rank's rows of x along dim (the image height of a [B, H, ...]
+    map, or the points of [B, N, ...]) under the ray split; x otherwise."""
+    w = ray_split()
     if w is None:
         return x
-    b, rest = x.shape[0], x.shape[1:]
-    padded = torch.cat([x.new_zeros((w.rank * b, *rest)), x, x.new_zeros(((w.size - w.rank - 1) * b, *rest))])
-    return _SumOverRanks.apply(padded)
+    lo, hi = ray_bounds(x.shape[dim], w)
+    return x.narrow(dim, lo, hi - lo)
+
+
+def gather_rays(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """The whole of a map split by `own_rays` along dim, from every sp rank's
+    rows, by a sum over the sp group of zero-padded copies, with autograd
+    (the backward sums the incoming gradient over the sp group); x outside
+    the ray split."""
+    w = ray_split()
+    if w is None:
+        return x
+    return _SumOverRanks.apply(_placed(x, dim, w.sp_rank, w.sp), w.sp_group)
 
 
 # ----------------------------------------------------------- collectives

@@ -43,7 +43,9 @@ class Runner:
     `work_dir`; `lpips_fn` and `id_fn` (`training.perceptual`) add the LPIPS
     and identity columns to the scores and LPIPS to projection's objective.
     With a `world` of several ranks (`parallel.mesh`, imported as `dp`), `image2image` serves
-    a global batch data-parallel; every other entry point is per rank."""
+    a global batch data-parallel; every other entry point is per rank. A
+    world with an sp axis raises: JAX serves only under a pure dp mesh
+    (`__graft_entry__.py:218-232`)."""
 
     def __init__(
         self,
@@ -55,6 +57,9 @@ class Runner:
         id_fn: Callable | None = None,
         world: dp.World | None = None,
     ):
+        if world is not None and world.sp > 1:
+            raise ValueError(f"Runner serves across ranks under pure dp only, not on an sp axis of {world.sp}: "
+                             f"start the world with sp=1")
         self.device = resolve_device(device)
         self.world = world
         self.model = model.to(self.device)

@@ -349,7 +349,12 @@ def make_stage1_step(
     set of decoder noise maps (JAX renders the sample and the inversion with
     the same noise rng), a frozen-GAN batch from `synthetic_sample` at the
     schedule's pose scale, `stage1_loss`, its backward, the gradients
-    averaged over `world`'s ranks and `optimizer_step`."""
+    averaged over `world`'s ranks and `optimizer_step`. A world with an sp
+    axis raises: JAX's stage-1 step takes no ray split (`steps.py:267` has
+    no constrain_fn)."""
+    if world is not None and world.sp > 1:
+        raise ValueError(f"the stage-1 step takes no ray split (sp={world.sp}): JAX's stage-1 step has no "
+                         f"constrain_fn; run stage 1 at sp=1")
 
     def train_step(mean_latents, batch_size: int, generator: torch.Generator | None = None):
         with mesh.sharded(world):
@@ -436,7 +441,11 @@ def cycle_loss(
     disc_weight_max) over them, taken from this one forward by two
     retain-graph pulls (in a data-parallel step, averaged over the ranks
     before the norms, as JAX's global-batch gradients), as a constant.
-    Returns (loss, metrics, the query render's output)."""
+    Under the ray split (`mesh.sharded(world, rays=True)`) every G0 render
+    and field query runs the rank's rays, and each image map a 2D layer or a
+    term reads is whole (`mesh.gather_rays`); the rank's gradients then
+    average over the world to the global one (`parallel.mesh`). Returns
+    (loss, metrics, the query render's output)."""
     ref_info = model.encode_ref_images(batch["images"], mean_latents, batch["cam_settings"], train=True)
     que_out = model.que_render_given_ref(ref_info, swap_tree(batch["cam_settings"]), train=True,
                                          use_ref_view_weight=use_ref_view_weight, noise=noise)
@@ -464,7 +473,9 @@ def cycle_loss(
         loss = loss + lambdas["res_lambda"] * m["res_loss"]
     que_info = que_out["que_info"]
     if lambdas.get("hit_prob_consistency_lambda", 0.0) > 0:
-        m["hit_prob_consistency"] = L.hit_prob_consistency_loss(rec["hit_prob"], que_info["hit_prob"])
+        # per-sample maps: whole under the ray split, so the term is the whole image's mean
+        m["hit_prob_consistency"] = L.hit_prob_consistency_loss(mesh.gather_rays(rec["hit_prob"]),
+                                                                mesh.gather_rays(que_info["hit_prob"]))
         loss = loss + lambdas["hit_prob_consistency_lambda"] * m["hit_prob_consistency"]
     if lambdas.get("depth_lambda", 0.0) > 0:
         m["depth_consistency"] = L.depth_consistency_loss(rec["depth"], que_info["depth"])
@@ -490,14 +501,19 @@ def make_cycle_step(
     schedule's pose scale, `cycle_loss` (the adaptive weight probed at the
     `local` parameters, as JAX's default probe), its backward, the gradients
     averaged over `world`'s ranks, `optimizer_step` with the EMA
-    (`steps.py:367-559`). Each rank needs an even number of rows (the pairs
-    are swapped within a rank)."""
+    (`steps.py:367-559`). Each dp shard needs an even number of rows (the
+    pairs are swapped within a rank). On a world with an sp axis the step
+    splits the rays of every G0 render and field query over it (JAX's
+    constrain_fn with "sp" on the image height, `__graft_entry__.py:
+    202-210`); H must divide by sp."""
+    if world is not None and world.sp > 1:
+        mesh.ray_bounds(model.cfg.renderer.out_im_res, world)
     probe = None
     if adaptive_d_loss and d_fn is not None and lambdas.get("adv_lambda", 0.0) > 0:
         probe = [p for k, p in state.params.items() if k.startswith("local.")]
 
     def train_step(mean_latents, batch_size: int, generator: torch.Generator | None = None):
-        with mesh.sharded(world):
+        with mesh.sharded(world, rays=True):
             noise = decoder_noise(model, batch_size, generator)
             batch = model.synthetic_sample(batch_size, pose_scale_schedule(state.step), pair_same_id=True,
                                            generator=generator, noise=noise)

@@ -11,6 +11,8 @@ train_ae.py, scripts/train/ffhq/stage{1,2.1,2.2}.sh), with its services.
     python -m e3dge_torch.training.train --stage 2.2 ... --resume runs/stage22/models_latest
     python -m e3dge_torch.training.train --tiny --iters 2 --batch 2 --device cpu --work-dir runs/st1_tiny
     python -m torch.distributed.run --standalone --nproc_per_node 4 -m e3dge_torch.training.train --batch 16 ...
+    python -m torch.distributed.run --standalone --nproc_per_node 4 -m e3dge_torch.training.train --stage 2.2 \
+        --batch 4 --sp 2 ...
 
 The model is `stage1_config` / `stage2_config` (or `tiny_test_config` /
 `tiny_full_config` with --tiny) on seeded weights (`init_weights`); the
@@ -43,7 +45,10 @@ share a card): --batch stays the global batch and each rank takes its rows,
 so n ranks compute what one process computes on that batch. The model and
 both Ds start from rank 0's; only rank 0 prints, logs, writes panels,
 validates and saves, while the others wait; --resume loads on every rank.
-The `sp` (ray) axis of the JAX mesh is not ported.
+With --sp N (stages 2.1 and 2.2; WORLD_SIZE = dp x N) the ranks form JAX's
+dp x sp mesh: the batch is split over dp, and each cycle step splits the
+rays of its G0 renders over the N ranks of a dp shard (`parallel.mesh`);
+the D producers and D steps run whole on each of them. Stage 1 refuses it.
 """
 
 from __future__ import annotations
@@ -101,6 +106,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--device", default=None, help="default: the CUDA card (under torchrun, LOCAL_RANK's)")
     ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
                     help="the ranks' backend under torchrun (default: nccl on cards, gloo on the CPU)")
+    ap.add_argument("--sp", type=int, default=1,
+                    help="stages 2.x under torchrun: the ray (sp) axis of the dp x sp mesh, dividing WORLD_SIZE")
     ap.add_argument("--ckpt", default=None,
                     help="warm-start the variables from an earlier run's models_<name> directory (or the <module>.pt "
                          "files of the earlier layout) where their shapes match; the optimizer starts fresh")
@@ -207,7 +214,9 @@ def train(args: argparse.Namespace) -> int:
     """The run `main` parses, on this process's ranks (none under no
     launcher): `run` between joining the process group and leaving it, on
     an exception too."""
-    world = mesh.init_distributed(args.dist_backend, device=args.device)
+    if args.sp > 1 and args.stage == "1":
+        raise SystemExit(f"--sp {args.sp}: stage 1 takes no ray split (JAX's stage-1 step has no constrain_fn)")
+    world = mesh.init_distributed(args.dist_backend, device=args.device, sp=args.sp)
     try:
         return run(args, world)
     finally:
@@ -314,6 +323,10 @@ def run(args: argparse.Namespace, world: mesh.World) -> int:
         say(f"resumed from {args.resume} at iter {start_it}", flush=True)
     ml = runner.mean_latents
     ranks = f" ({world.size} ranks, {bs // world.size} rows each)" if world.size > 1 else ""
+    if world.sp > 1:
+        h = cfg.renderer.out_im_res
+        ranks = (f" ({world.size} ranks: dp {world.dp} x sp {world.sp}, {bs // world.dp} rows and {h // world.sp} "
+                 f"of {h} ray rows each)")
     say(f"stage {args.stage}: {'tiny' if args.tiny else 'full width'} on {dev}, batch {bs}{ranks}, {args.optimizer} "
         f"lr {args.lr}, trainable {trainable}", flush=True)
 

@@ -32,6 +32,7 @@ import optax
 import pytest
 import torch
 from test_torch_models import conv_atol, seeded_variables
+from test_torch_sp import RANKS_TIMEOUT, _cycle_loss_rank
 from test_torch_training import (GRAD_RTOL, METRIC_RTOL, STAT_ATOL, _capture, _np, _t, _torch_batch,
                                  one_torch_thread)  # noqa: F401 (autouse)
 
@@ -40,6 +41,7 @@ from e3dge_torch.models.discriminator import Discriminator as TDisc
 from e3dge_torch.models.e3dge import E3DGE as TE3DGE
 from e3dge_torch.models.e3dge import LatentMeans as TLM
 from e3dge_torch.ops import siren_field as sf
+from e3dge_torch.parallel import launch
 from e3dge_torch.training import steps as ts
 from e3dge_torch.training import train_utils as tu
 from e3dge_torch.utils.weights import (batch_stats_to_jax, discriminator_state_dict_from_jax, jax_path_to_torch,
@@ -183,6 +185,32 @@ def test_cycle_gradients_match_jax(cycle):
     assert tops == set(ts.STAGE22_TRAINABLE) and len(ref) == len(cycle["grads"])
     assert all(p.grad is None for n, p in cycle["tm"].named_parameters() if n.split(".")[0] not in tops)
     assert all(p.grad is None for p in cycle["d"].parameters())
+
+
+def test_cycle_loss_on_a_1x2_world_matches_jax(setup, cycle, tmp_path):
+    """The port's `cycle_loss` on the fixture's batch across a 1x2 gloo world
+    (the rays of every G0 render split over 2 ranks, the image maps gathered
+    whole) against JAX's compiled step: every metric within METRIC_RTOL (the
+    adaptive weight CYCLE_GRAD_RTOL), the averaged gradient within
+    CYCLE_GRAD_RTOL as a whole and CYCLE_LEAF_RTOL per leaf, on both ranks."""
+    _, _, _, ml, _, _ = setup
+    sd = {k: v.numpy() for k, v in cycle["before"].items()}
+    d_sd = {k: v.numpy() for k, v in cycle["d"].state_dict().items()}
+    batch = {k: tuple(np.asarray(f) for f in v) if k == "cam_settings" else np.asarray(v)
+             for k, v in cycle["jbatch"].items()}
+    got = launch.spawn(_cycle_loss_rank, 2, sd, d_sd, D_RES, batch, ml, LAMBDAS, DISC_WEIGHT_MAX, timeout=RANKS_TIMEOUT,
+                       device="cpu", rendezvous_dir=str(tmp_path), sp=2)
+    want, ref = cycle["metrics"], _jax_grads(cycle)
+    for r in got:
+        assert set(r["metrics"]) == set(want)
+        for k, w in want.items():
+            rtol = CYCLE_GRAD_RTOL if k == "d_weight" else METRIC_RTOL
+            np.testing.assert_allclose(r["metrics"][k], float(w), rtol=rtol, atol=1e-7, err_msg=k)
+        whole, leaf = leaf_errors({k: r["grads"][k] for k in ref}, ref)
+        worst = max(leaf, key=leaf.get)
+        print(f"1x2 world: cycle gradient vs JAX: relative L2 {whole:.3e} as a whole, worst leaf {leaf[worst]:.3e} "
+              f"at {worst}")
+        assert whole < CYCLE_GRAD_RTOL and leaf[worst] < CYCLE_LEAF_RTOL, f"{worst}: {leaf[worst]:.2e}"
 
 
 def test_cycle_gradient_gap_is_rounding(setup, cycle):

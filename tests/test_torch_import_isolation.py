@@ -1,6 +1,7 @@
 """The port stands alone: with `jax`, `flax`, `optax` and `e3dge_tpu` made
 unimportable, every module of `e3dge_torch` imports (walked by pkgutil), as
-does `chip_smoke.py`, and the trainer's and the eval CLI's parsers run."""
+do `chip_smoke.py`, `dp_scaling.py`, `sp_scaling.py` and `rank_spread.py`,
+and the trainer's and the eval CLI's parsers run."""
 
 import subprocess
 import sys
@@ -27,7 +28,8 @@ import e3dge_torch
 names = [m.name for m in pkgutil.walk_packages(e3dge_torch.__path__, "e3dge_torch.")]
 for name in names:
     importlib.import_module(name)
-importlib.import_module("chip_smoke")
+for script in ("chip_smoke", "dp_scaling", "sp_scaling", "rank_spread"):
+    importlib.import_module(script)
 from e3dge_torch import eval as teval
 from e3dge_torch.training import train
 
@@ -46,6 +48,6 @@ print("imported", len(names), "modules")
 def test_port_imports_nothing_of_jax_or_the_jax_package():
     proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert "--resume" in proc.stdout and "imported" in proc.stdout
+    assert "--resume" in proc.stdout and "--sp" in proc.stdout and "imported" in proc.stdout
     n = int(proc.stdout.split("imported ")[1].split()[0])
     assert n >= len(list((REPO / "e3dge_torch").rglob("*.py"))) - 1  # every module but the package itself
