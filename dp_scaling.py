@@ -6,10 +6,12 @@ stage2_config with chip_smoke.py's phase-10b recipe (TR_FLAGS +
 
     python3 dp_scaling.py            # needs 4 cards; prints one JSON line last
 
-1. Equality. 2 iterations at a global B=8: one card twice (the card's own
-   spread) and 4 ranks (2 rows each). Gate, phase 11's: the 4-rank final
-   state within chip_smoke.RESUME_FACTOR x the spread (at least
-   RESUME_FLOOR) of the first one-card run, its batch-mean metrics too.
+1. Equality. 2 iterations at a global B=8: one card chip_smoke.SPREAD_RUNS
+   times (the card's own spread, on cards 0, 1, 2 at once) and 4 ranks (2
+   rows each). Gate, phase 11's: the 4-rank final state against the first
+   one-card run within chip_smoke.RESUME_FACTOR x the largest gap among the
+   one-card runs' pairs (at least RESUME_FLOOR; `equality_limits`), its
+   batch-mean metrics too.
 2. Weak scaling. WARMUP + MEASURED iterations at B=4 on one card and at
    B=16 on 4 ranks (4 rows each): ms per measured iteration on rank 0 (host
    clock, the card synchronised at both ends), and over the same window
@@ -19,8 +21,7 @@ stage2_config with chip_smoke.py's phase-10b recipe (TR_FLAGS +
 TF32 is off in every run, as in chip_smoke.py's training phases. Each run
 is a process group of chip_smoke.py's --rank-child (phase 11's) with a time
 limit of its own; the one-card runs take no process group (the trainer's
-default), and the two one-card equality runs share the host on cards 0 and
-1. Every figure names the cards (nvidia-smi's name and power limit).
+default), and the one-card equality runs share the host. Every figure names the cards (nvidia-smi's name and power limit).
 """
 
 from __future__ import annotations
@@ -61,6 +62,12 @@ def wait(run: dict) -> tuple[str, list[dict]]:
     return os.path.join(run["out"], "work"), cs.wait_ranks(run, RUN_TIMEOUT)
 
 
+def equality_limits(works: list[str]) -> tuple[float, float]:
+    """The equality gate's limits (metrics, final state): `chip_smoke.rank_limits`
+    over the one-card runs at B=EQ_BATCH."""
+    return cs.rank_limits(works, f"one-card runs at B={EQ_BATCH}")
+
+
 def main() -> int:
     if not torch.cuda.is_available() or torch.cuda.device_count() < RANKS:
         print(f"dp_scaling: needs {RANKS} CUDA devices", file=sys.stderr)
@@ -81,19 +88,15 @@ def main() -> int:
         base = [*cs.TR_FLAGS[:cs.TR_FLAGS.index("--batch")], *cs.TR_FLAGS[cs.TR_FLAGS.index("--batch") + 2:],
                 "--train-volume-d", "--saveimg-every", "0", "--ckpt-every", "1000", *cs.perceptual_files(root)]
         eq = ["--batch", str(EQ_BATCH), *base]
-        a = start(root, "one_card_b8_a", eq, None, EQ_ITERS, cards="0")
-        b = start(root, "one_card_b8_b", eq, None, EQ_ITERS, cards="1")
-        (one_a, _), (one_b, _) = wait(a), wait(b)
+        ones = [wait(r)[0] for r in [start(root, f"one_card_b8_{i}", eq, None, EQ_ITERS, cards=str(i))
+                                     for i in range(cs.SPREAD_RUNS)]]
         ranks, _ = wait(start(root, f"{RANKS}_ranks_b8", eq, RANKS, EQ_ITERS))
-        _, spread, where = cs.run_gap(one_b, one_a, 1)
-        spread_loss = cs.run_gap(one_b, one_a, 1, skip=cs.DP_NONLINEAR_METRICS)[0]
-        lim, lim_loss = (max(cs.RESUME_FACTOR * x, cs.RESUME_FLOOR) for x in (spread, spread_loss))
-        loss, state, at = cs.run_gap(ranks, one_a, 1, skip=cs.DP_NONLINEAR_METRICS)
-        cs.log(f"equality at B={EQ_BATCH}: one card's spread {spread:.3e} ({where}), metrics {spread_loss:.3e}; "
-               f"{RANKS} ranks vs one card: final state {state:.3e} ({at}) [limit {lim:.3e}], metrics {loss:.3e} "
-               f"[limit {lim_loss:.3e}]")
+        lim_loss, lim = equality_limits(ones)
+        loss, state, at = cs.run_gap(ranks, ones[0], 1, skip=cs.DP_NONLINEAR_METRICS)
+        cs.log(f"equality at B={EQ_BATCH}: {RANKS} ranks vs one card: final state {state:.3e} ({at}) [limit "
+               f"{lim:.3e}], metrics {loss:.3e} [limit {lim_loss:.3e}]")
         equal = state <= lim and loss <= lim_loss
-        for work in (one_a, one_b, ranks):
+        for work in (*ones, ranks):
             shutil.rmtree(work)
 
         iters = WARMUP + MEASURED
@@ -105,9 +108,8 @@ def main() -> int:
         eff = w1["ms_per_iter"] / wn["ms_per_iter"]
         cs.log(f"weak scaling, {MEASURED} iterations after {WARMUP}: one card B={WS_BATCH_PER_RANK} {w1}; "
                f"{RANKS} ranks B={RANKS * WS_BATCH_PER_RANK} (rank 0) {wn}; efficiency {eff:.4f}")
-    result = {"cards": smi, "equality": {"batch": EQ_BATCH, "iters": EQ_ITERS, "spread_state": spread,
-                                         "spread_where": where, "spread_metrics": spread_loss, "gap_state": state,
-                                         "gap_where": at, "gap_metrics": loss, "limit_state": lim,
+    result = {"cards": smi, "equality": {"batch": EQ_BATCH, "iters": EQ_ITERS, "one_card_runs": cs.SPREAD_RUNS,
+                                         "gap_state": state, "gap_where": at, "gap_metrics": loss, "limit_state": lim,
                                          "limit_metrics": lim_loss, "inside": equal},
               "weak_scaling": {"one_card": w1, "ranks": wn, "efficiency": eff, "warmup": WARMUP,
                                "measured": MEASURED},

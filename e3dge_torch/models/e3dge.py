@@ -74,7 +74,8 @@ class E3DGE(nn.Module):
         self.volume_discriminator = VolumeRenderDiscriminator(init_size=c.renderer.out_im_res)
         if c.renderer.enable_local_model:
             self.local = LocalFeatureNet(
-                c.pifu, modulation_width=c.renderer.width, local_feats_dim=c.renderer.residual_local_feats_dim
+                c.pifu, modulation_width=c.renderer.width, local_feats_dim=c.renderer.residual_local_feats_dim,
+                variant="bn" if c.pifu.netLocal_type == "HGPIFuNetGANResidual" else "resnetfc",
             )
             self.grid_align = ResidualAligner()
             self.fuse_sft_block = FuseSftMLP(2 * c.pifu.hourglass_dim + 1, out_ch=c.pifu.hourglass_dim)
@@ -94,11 +95,13 @@ class E3DGE(nn.Module):
     @contextmanager
     def _mode(self, train: bool):
         """One call's mode, as flax's `train=`: serving (train False) runs under
-        no_grad with every BatchNorm (E0's, the aligner's) on its running
-        statistics; a training call keeps the caller's grad mode and runs them
-        in train mode for the call only (batch statistics, running statistics
-        updated), trained or frozen alike, as JAX's steps do."""
-        mods = [m for m in (self.encoder, getattr(self, "grid_align", None)) if m is not None]
+        no_grad with every BatchNorm (E0's, the aligner's, the "bn" netLocal's)
+        on its running statistics; a training call keeps the caller's grad
+        mode and runs them in train mode for the call only (batch statistics,
+        running statistics updated), trained or frozen alike, as JAX's steps
+        do."""
+        mods = [m for m in (self.encoder, getattr(self, "grid_align", None), getattr(self, "local", None))
+                if m is not None]
         was = [m.training for m in mods]
         for m in mods:
             m.train(train)

@@ -30,14 +30,22 @@ from e3dge_torch.parallel import mesh
 
 
 class Conv2d(nn.Conv2d):
-    """nn.Conv2d computing in the input dtype (f32 parameters cast at use)."""
+    """nn.Conv2d computing in the input dtype (f32 parameters cast at use).
+    A bf16 convolution on the CPU runs as the f32 convolution of its bf16
+    operands, rounded to bf16 (f32 accumulation, as the bf16 kernels do): the
+    CPU's own bf16 convolution returns a wrong weight gradient for a 1x1
+    input at stride 2 (E0's last map2style conv at tiny sizes; torch 2.13)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight.to(x.dtype)
         b = None if self.bias is None else self.bias.to(x.dtype)
+        padding = self.padding
         if self.padding_mode != "zeros":
-            x = F.pad(x, self._reversed_padding_repeated_twice, mode=self.padding_mode)
-            return F.conv2d(x, self.weight.to(x.dtype), b, self.stride, 0, self.dilation, self.groups)
-        return F.conv2d(x, self.weight.to(x.dtype), b, self.stride, self.padding, self.dilation, self.groups)
+            x, padding = F.pad(x, self._reversed_padding_repeated_twice, mode=self.padding_mode), 0
+        if x.dtype == torch.bfloat16 and x.device.type == "cpu":
+            return F.conv2d(x.float(), w.float(), None if b is None else b.float(), self.stride, padding,
+                            self.dilation, self.groups).to(x.dtype)
+        return F.conv2d(x, w, b, self.stride, padding, self.dilation, self.groups)
 
 
 class BatchNorm2d(nn.BatchNorm2d):

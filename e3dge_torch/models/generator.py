@@ -34,7 +34,7 @@ class Generator(nn.Module):
     def mean_latent(self, n_latent: int = 10000, generator: torch.Generator | None = None):
         """(renderer w mean [1, 256], decoder w mean [1, 512]) over n random z
         (stylesdf_model.py:854-864)."""
-        dev = self.renderer.sigmoid_beta.device
+        dev = self.style[0].weight.device
         z = torch.randn(n_latent, self.cfg.renderer.style_dim, device=dev, generator=generator)
         renderer_w = self.style(z)
         decoder_mean = self.decoder.mean_latent(renderer_w) if self.full_pipeline else None

@@ -57,6 +57,18 @@ def _t_vals(n: int, offset_sampling: bool, device) -> torch.Tensor:
     return torch.linspace(0.0, 1.0 - 1.0 / n if offset_sampling else 1.0, n, device=device)
 
 
+# the differentiable field's evaluations by the eager twin, by part ("field":
+# the whole field, `_twin_field`; "texture": the texture head on a cached
+# backbone, `render_from_backbone`) and precision, counted beside the field
+# kernel's launches (`ops.siren_field.launch_counts`)
+twin_counts = {(part, p): 0 for part in ("field", "texture") for p in ("serving", "highest")}
+
+
+def reset_twin_counts() -> None:
+    for k in twin_counts:
+        twin_counts[k] = 0
+
+
 # the image maps of a render and their height axis, gathered whole under the
 # ray split (`_whole_maps`)
 IMAGE_MAPS = {"gen_thumb_imgs": 2, "features": 2, "depth": 1, "mask": 1}
@@ -78,9 +90,8 @@ class VolumeFeatureRenderer(nn.Module):
         self.cfg = cfg
         self.camera_dist_radius = camera_dist_radius
         self.network = SirenGenerator(cfg.depth, cfg.width, cfg.style_dim, output_features=cfg.output_features)
-        if not cfg.with_sdf:
-            raise NotImplementedError("raw-density renderers (with_sdf=False) are not ported")
-        self.sigmoid_beta = nn.Parameter(torch.full((1,), 0.1))
+        if cfg.with_sdf:  # a raw-density renderer integrates with beta = 1 (JAX's `volume_renderer.py:49`)
+            self.sigmoid_beta = nn.Parameter(torch.full((1,), 0.1))
 
     # -- field queries -------------------------------------------------------
 
@@ -136,6 +147,7 @@ class VolumeFeatureRenderer(nn.Module):
         `serving`), the points warped, the network on the flattened [B, N, C]
         samples. `remat_field` wraps it in a non-reentrant checkpoint, which
         recomputes it in the backward (`nn.remat` in JAX)."""
+        twin_counts[("field", precision)] += 1
         dt = io_dtype(precision)
         shp, b = pts.shape[:-1], pts.shape[0]
         net = self.network
@@ -219,8 +231,9 @@ class VolumeFeatureRenderer(nn.Module):
         precision = field_precision(field_dtype or c.field_dtype)
         feat, rgb_sdf, raw_h = self._field(pts, dirs, styles, conditions, precision, return_raw_h)
         features = feat.float() if c.output_features else None
+        beta = self.sigmoid_beta if c.with_sdf else 1.0
         out = volume_integrate(
-            rgb_sdf[..., :3], rgb_sdf[..., 3:4], features, z_vals, rays_d, pts, self.sigmoid_beta,
+            rgb_sdf[..., :3], rgb_sdf[..., 3:4], features, z_vals, rays_d, pts, beta,
             force_background=c.force_background, no_force_stop=no_force_stop,
             fg_mask_threshold=c.fg_mask_threshold,
         )
@@ -265,6 +278,7 @@ class VolumeFeatureRenderer(nn.Module):
         n = shp[1] * shp[2] * shp[3]
         dirs = cached["viewdirs"][..., None, :].expand(*shp, 3)
         if self.needs_grad(h, styles, *(conditions or ())):
+            twin_counts[("texture", field_precision(h.dtype))] += 1
             rgb_raw, feat = self.network.tex_head(h, dirs.to(h.dtype), styles.to(h.dtype), conditions)
         else:
             precision = field_precision(h.dtype)

@@ -528,6 +528,30 @@ def make_cycle_step(
     return train_step
 
 
+# ------------------------------------------------- netLocal 3D pretraining
+
+
+def netlocal_pretrain_loss(
+    pred_surface_sdf: torch.Tensor,
+    pred_uniform_sdf: torch.Tensor,
+    gt_uniform_sdf: torch.Tensor,
+    eikonal: torch.Tensor | None = None,
+    lambdas: dict[str, float] | None = None,
+) -> torch.Tensor:
+    """The netLocal 3D-supervised pretraining objective (`steps.py:565-582`,
+    reference HGPIFuGANNet.get_error, HGPIFuGANNet.py:217-309): the surface
+    SDF of `LocalFeatureNet.predict_sdf` toward 0 (L1), the uniform points'
+    SDF regressed on the frozen field's (smooth L1) and, with an eikonal
+    term and eikonal_lambda, its eikonal loss."""
+    lambdas = lambdas or {}
+    loss = L.l1(pred_surface_sdf, torch.zeros_like(pred_surface_sdf)) * lambdas.get("surf_sdf_lambda", 1.0)
+    loss = loss + L.smooth_l1(pred_uniform_sdf, gt_uniform_sdf) * lambdas.get("uniform_pts_sdf_lambda", 1.0)
+    if eikonal is not None and lambdas.get("eikonal_lambda", 0.0) > 0:
+        eik, _ = L.eikonal_loss(eikonal)
+        loss = loss + lambdas["eikonal_lambda"] * eik
+    return loss
+
+
 # ------------------------------------------------------------------ D steps
 
 

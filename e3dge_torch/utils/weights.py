@@ -42,6 +42,10 @@ def _dense_to_torch(w):  # flax Dense kernel [in, out] -> torch [out, in]
     return np.asarray(w).transpose(1, 0)
 
 
+def _dense_to_conv1d(w):  # flax Dense kernel [in, out] -> torch Conv1d [out, in, 1]
+    return np.asarray(w).transpose(1, 0)[:, :, None]
+
+
 def _bias4_to_vec(w):  # [1, C, 1, 1] -> [C]
     return np.asarray(w).reshape(-1)
 
@@ -181,8 +185,9 @@ def _local_rule(rel: str) -> Rule | None:
     m = re.match(r"(residual_conv|depth_conv)/(.+)", rel)
     if m:
         n = m.group(1)
-        return {
+        table = {
             "conv_in/conv/kernel": (f"{n}.0.weight", _hwio_to_oihw),
+            # InstanceNorm (the resnetfc variant)
             "rb_norm1/scale": (f"{n}.1.conv.0.weight", _id),
             "rb_norm1/bias": (f"{n}.1.conv.0.bias", _id),
             "rb_conv1/conv/kernel": (f"{n}.1.conv.2.weight", _hwio_to_oihw),
@@ -190,13 +195,27 @@ def _local_rule(rel: str) -> Rule | None:
             "rb_norm2/bias": (f"{n}.1.conv.3.bias", _id),
             "rb_conv2/conv/kernel": (f"{n}.1.conv.5.weight", _hwio_to_oihw),
             "conv_out/conv/kernel": (f"{n}.2.weight", _hwio_to_oihw),
-        }.get(m.group(2))
+        }
+        # BatchNorm parameters and running statistics (the "bn" variant)
+        for ours, theirs in (("rb_norm1", f"{n}.1.conv.0"), ("rb_norm2", f"{n}.1.conv.3")):
+            table.update({f"{ours}/{k}": v for k, v in _bn(theirs).items()})
+        return table.get(m.group(2))
     m = re.match(r"image_filter/(.+)", rel)
     if m:
         return _hgfilter_rule("image_filter", m.group(1))
+    # the texture head: ResnetBlockFC (resnetfc) or EqualLinear (bn); the
+    # geometry head, EqualLinear
     m = re.match(r"local_feat_to_tex_modulations/(fc_0|fc_1|shortcut)_(weight|bias)", rel)
     if m:
         return (f"local_feat_to_tex_modulations_linear.{m.group(1)}.{m.group(2)}", _id)
+    m = re.match(r"local_feat_to_(tex|geo)_modulations/(weight|bias)", rel)
+    if m:
+        return (f"local_feat_to_{m.group(1)}_modulations_linear.{m.group(2)}", _id)
+    m = re.match(r"surface_classifier/conv(\d)/(kernel|bias)", rel)
+    if m:  # flax Dense [in, out] -> the reference's Conv1d [out, in, 1]
+        if m.group(2) == "kernel":
+            return (f"surface_classifier.conv{m.group(1)}.weight", _dense_to_conv1d)
+        return (f"surface_classifier.conv{m.group(1)}.bias", _id)
     return None
 
 

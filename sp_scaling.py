@@ -7,12 +7,13 @@ global B=4:
 
     python3 sp_scaling.py            # needs 4 cards; prints one JSON line last
 
-1. Equality. WARMUP + MEASURED iterations on one card twice (the card's
-   own spread; the two share the host on cards 0 and 1), then on a 2x2
-   (dp 2 x sp 2) and a 1x4 (sp 4) world of 4 cards. Gate, phase 11's: each
-   world's final state within chip_smoke.RESUME_FACTOR x the spread (at
-   least RESUME_FLOOR) of the first one-card run, its batch-mean metrics
-   too.
+1. Equality. WARMUP + MEASURED iterations on one card chip_smoke.SPREAD_RUNS
+   times (the card's own spread; the runs share the host on cards 0, 1, 2),
+   then on a 2x2 (dp 2 x sp 2) and a 1x4 (sp 4) world of 4 cards. Gate,
+   phase 11's: each world's final state against the first one-card run
+   within chip_smoke.RESUME_FACTOR x the largest gap among the one-card
+   runs' pairs (at least RESUME_FLOOR; `equality_limits`), its batch-mean
+   metrics too.
 2. Strong scaling. Over the MEASURED iterations after WARMUP, each run's
    rank 0: ms per iteration (host clock, the card synchronised at both
    ends), device busy ms, NCCL kernel ms and field kernel ms per iteration
@@ -54,6 +55,12 @@ WARMUP, MEASURED = ds.WARMUP, ds.MEASURED
 MESHES = ((2, 2), (1, 4))
 
 
+def equality_limits(works: list[str]) -> tuple[float, float]:
+    """The equality gate's limits (metrics, final state): `chip_smoke.rank_limits`
+    over the one-card runs at B=BATCH."""
+    return cs.rank_limits(works, f"one-card runs at B={BATCH}")
+
+
 def main() -> int:
     if not torch.cuda.is_available() or torch.cuda.device_count() < RANKS:
         print(f"sp_scaling: needs {RANKS} CUDA devices", file=sys.stderr)
@@ -73,18 +80,15 @@ def main() -> int:
         i = cs.TR_FLAGS.index("--batch")
         argv = ["--batch", str(BATCH), *cs.TR_FLAGS[:i], *cs.TR_FLAGS[i + 2:], "--train-volume-d",
                 "--saveimg-every", "0", "--ckpt-every", "1000", *cs.perceptual_files(root)]
-        a = ds.start(root, "one_card_a", argv, None, iters, profile=True, cards="0")
-        b = ds.start(root, "one_card_b", argv, None, iters, cards="1")
-        (one_a, (rep_a,)), (one_b, _) = ds.wait(a), ds.wait(b)
-        _, spread, where = cs.run_gap(one_b, one_a, 1)
-        spread_loss = cs.run_gap(one_b, one_a, 1, skip=cs.DP_NONLINEAR_METRICS)[0]
-        lim, lim_loss = (max(cs.RESUME_FACTOR * x, cs.RESUME_FLOOR) for x in (spread, spread_loss))
-        one = rep_a["window"]
-        cs.log(f"one card B={BATCH}: spread {spread:.3e} ({where}), metrics {spread_loss:.3e}; limits {lim:.3e} and "
-               f"{lim_loss:.3e}; {one}")
-        result["one_card"] = {"window": one, "spread_state": spread, "spread_where": where,
-                              "spread_metrics": spread_loss, "limit_state": lim, "limit_metrics": lim_loss}
-        shutil.rmtree(one_b)
+        runs = [ds.wait(r) for r in [ds.start(root, f"one_card_{i}", argv, None, iters, profile=i == 0, cards=str(i))
+                                     for i in range(cs.SPREAD_RUNS)]]
+        ones = [work for work, _ in runs]
+        one_a, one = ones[0], runs[0][1][0]["window"]
+        lim_loss, lim = equality_limits(ones)
+        cs.log(f"one card B={BATCH}: limits {lim:.3e} and {lim_loss:.3e}; {one}")
+        result["one_card"] = {"window": one, "runs": cs.SPREAD_RUNS, "limit_state": lim, "limit_metrics": lim_loss}
+        for work in ones[1:]:
+            shutil.rmtree(work)
         equal = True
         for dp, sp in MESHES:
             name = f"{dp}x{sp}"

@@ -2,7 +2,9 @@
 metric's gap relative to its largest magnitude over the reference run, so a
 score that crosses zero is not read at its last digits, and the final-state
 gap as the worst group's relative L2 gap; `spread_limits` sets the limits
-from the largest gap among the pairs of one-rank runs."""
+from the largest gap among the pairs of one-rank runs, and every gate that
+holds ranks to one rank (11a, `dp_scaling.py`, `sp_scaling.py`) takes them
+from three such runs (`rank_limits`)."""
 
 import json
 import os
@@ -59,3 +61,56 @@ def test_spread_limits_take_the_largest_pair(tmp_path):
     lim_loss, lim_state = cs.spread_limits(works, "runs", groups=_groups)
     assert lim_loss == pytest.approx(cs.RESUME_FACTOR * 0.0009 / 9.0)
     assert lim_state == cs.RESUME_FLOOR
+
+
+def _three_runs(root):
+    # the first pair is far closer than the others, as a single draw can be
+    return [_run(root, n, [{"loss": 9.0, "psnr": 20.0}, {"loss": v, "psnr": p}])
+            for n, v, p in (("a", 6.0, 20.0), ("b", 6.00001, 20.0), ("c", 6.0009, 25.0))]
+
+
+@pytest.mark.parametrize("gate", ["11a", "dp_scaling", "sp_scaling"])
+def test_rank_gates_take_their_limits_from_three_runs(tmp_path, monkeypatch, gate):
+    """Phase 11a, dp_scaling.py and sp_scaling.py set their limits from the
+    pairs of SPREAD_RUNS one-rank runs (the largest gap, psnr not read, as
+    11b and 12 do), not from one pair; fewer runs raise."""
+    import dp_scaling
+    import sp_scaling
+
+    limits = {"11a": cs.st1_rank_limits, "dp_scaling": dp_scaling.equality_limits,
+              "sp_scaling": sp_scaling.equality_limits}[gate]
+    for name in ("_st1_groups", "_groups"):  # the runs' final state: no checkpoints here
+        monkeypatch.setattr(cs, name, _groups)
+    works = _three_runs(tmp_path)
+    assert cs.SPREAD_RUNS == len(works)
+    lim_loss, lim_state = limits(works)
+    assert lim_loss == pytest.approx(cs.RESUME_FACTOR * 0.0009 / 9.0)
+    assert lim_state == cs.RESUME_FLOOR
+    with pytest.raises(ValueError, match="spread needs"):
+        limits(works[:2])
+
+
+def test_leaf_limits_add_the_field_kernels_own_gap():
+    """13c's reduced step: a leaf whose card-vs-CPU gap is past ST1_TOL_LEAF
+    only by what the plain field in place of the kernel moves it on the card
+    passes; a leaf off by O(1) (the SFT-detached control) still fails; and
+    without a measured field gap (phase 8) every limit stays ST1_TOL_LEAF."""
+    one = {"depth_bn": torch.tensor([1.0, 0.0]), "head": torch.tensor([0.0, 2.0])}
+    cpu = {k: v.clone() for k, v in one.items()}
+    card = {"depth_bn": torch.tensor([1.035, 0.0]), "head": torch.tensor([0.0, 2.01])}
+    plain = {"depth_bn": torch.tensor([1.005, 0.0]), "head": torch.tensor([0.0, 2.01])}
+    detached = {"depth_bn": torch.tensor([1.035, 0.0]), "head": torch.tensor([0.0, 0.0])}
+
+    gaps = cs.leaf_gaps(card, cpu)
+    assert gaps["depth_bn"] == pytest.approx(0.035, rel=1e-5) and gaps["depth_bn"] > cs.ST1_TOL_LEAF
+    fixed = cs.leaf_limits(None, cpu)
+    assert fixed == {k: cs.ST1_TOL_LEAF for k in cpu}
+    assert cs.worst_leaf(gaps, fixed)[0] == "depth_bn"
+
+    limits = cs.leaf_limits(cs.leaf_gaps(card, plain), cpu)
+    assert limits["depth_bn"] == pytest.approx(cs.ST1_TOL_LEAF + cs.LEAF_FIELD_FACTOR * 0.03 / 1.005, rel=1e-5)
+    assert limits["head"] == pytest.approx(cs.ST1_TOL_LEAF)
+    name, gap, lim = cs.worst_leaf(gaps, limits)
+    assert gap < lim
+    name, gap, lim = cs.worst_leaf(cs.leaf_gaps(detached, cpu), limits)
+    assert (name, gap) == ("head", pytest.approx(1.0)) and gap >= lim

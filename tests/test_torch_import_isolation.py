@@ -1,7 +1,8 @@
 """The port stands alone: with `jax`, `flax`, `optax` and `e3dge_tpu` made
 unimportable, every module of `e3dge_torch` imports (walked by pkgutil), as
 do `chip_smoke.py`, `dp_scaling.py`, `sp_scaling.py` and `rank_spread.py`,
-and the trainer's and the eval CLI's parsers run."""
+the trainer's and the eval CLI's parsers run, and the reference flags build
+a config (`utils/options_compat.py`)."""
 
 import subprocess
 import sys
@@ -39,6 +40,11 @@ except SystemExit as e:
     assert e.code == 0, e.code
 args = teval.parse_args(["--data", "d", "--mode", "now"])
 assert args.mode == "now" and args.ckpt is None
+from e3dge_torch.utils.options_compat import config_from_reference_flags
+
+cfg, unknown = config_from_reference_flags(["--no_sdf", "--netLocal_type", "HGPIFuNetGANResidual", "--x"])
+assert not cfg.renderer.with_sdf and cfg.pifu.netLocal_type == "HGPIFuNetGANResidual" and unknown == ["--x"]
+assert "e3dge_torch.utils.options_compat" in names
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("imported", len(names), "modules")
