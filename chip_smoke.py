@@ -27,8 +27,9 @@ Phases, each failing loudly (any failure exits non-zero before the last line):
      device busy share, top device kernels);
   5. the same inversion in f32 on the card and on the CPU (plain versions)
      with the same weights, input and decoder noise: max abs difference of
-     gen_imgs against a stated tolerance, and the bf16 image of phase 4
-     against the f32 card image (mean relative error);
+     gen_imgs against a stated tolerance (the CPU's run in a child process,
+     read after phase 6), and the bf16 image of phase 4 against the f32 card
+     image (mean relative error);
   6. the other inference paths on phase 4's weights, input and noise, each
      with its launch counts, output checks, ms per call, device busy ms per
      call and peak memory:
@@ -100,18 +101,21 @@ Phases, each failing loudly (any failure exits non-zero before the last line):
      batches, ms per iteration beside phase 8's, a batch load, each
      checkpoint save (ms, MB), the validation call and a panel, device busy
      share and peak memory; b. --resume with both D states: two
-     uninterrupted runs give the card's spread, a resumed run stays within
-     10x of it (metrics and final state), a resume that drops the optimizer
-     state falls outside; c. `e3dge_torch.eval.main --mode now` at
+     uninterrupted runs of RANK_REF_ITERS iterations give the card's spread
+     (and are the one-rank reference of phases 11b and 12), a resumed run
+     stays within 10x of it (metrics and final state), a resume that drops
+     the optimizer state falls outside; c. `e3dge_torch.eval.main --mode now` at
      demo_view_synthesis_config, f32, batch 2, on a seeded NoW layout (4
      JPEGs of 1024x768, scans of 62,500 points): the NoW SDF grid's launch
      shape against the plain field, the launches per batch, a mesh per
      image, finite scores, ms per image in three parts, and
-     `now_scan_error` card against CPU with a moved-mesh control;
- 11. data parallelism (`e3dge_torch.parallel`) on the one card, after a
-     one-rank reference (10b's flags at RANK_REF_ITERS iterations, run
-     SPREAD_RUNS times: the card's spread, whose RESUME_FACTOR x sets 11b's
-     and 12's limits): 2 ranks over gloo with CUDA tensors, each run a
+     `now_scan_error` card against CPU with a moved-mesh control (10c runs
+     first; the CPU's run in a child process beside 10a and 10b);
+ 11. data parallelism (`e3dge_torch.parallel`) on the one card, against a
+     one-rank reference (10b's uninterrupted runs: its flags at
+     RANK_REF_ITERS iterations, SPREAD_RUNS runs, the card's spread, whose
+     RESUME_FACTOR x sets 11b's and 12's limits): 2 ranks over gloo with
+     CUDA tensors, each run a
      torchrun process group of this
      script's `--rank-child SPEC` with its own time limit: a. train.main at
      stage1_config, B=4, 2 ranks against one rank within RESUME_FACTOR x
@@ -123,8 +127,9 @@ Phases, each failing loudly (any failure exits non-zero before the last line):
      inversions and within the bf16 limit of its B=2 call; d. one stage-1
      iteration under nccl at world 1: every collective an exact identity,
      the forward equal to runs without a process group, the backward within
-     their spread; each run's field launches per rank per iteration and the
-     per-rank launch shapes against the plain field, timed;
+     their spread (d's runs beside c's); each run's field launches per rank
+     per iteration and the per-rank launch shapes against the plain field,
+     timed;
  12. the sp (ray) axis on the one card: the reference's run through
      `train.main --sp 2` on a 1x2 (a) and a 2x2 (b) dp x sp world over gloo
      (torchrun groups of --rank-child, as 11), each against the reference's
@@ -157,10 +162,35 @@ Phases, each failing loudly (any failure exits non-zero before the last line):
      flagship image2image with the raw-density renderer (with_sdf False):
      1 + 1 launches, a finite non-constant image, f32 card vs CPU within
      phase 5's tolerance. `python3 chip_smoke.py --phase 13` runs phases 1,
-     2 and 13 only.
-Prints a `kernels` JSON line (with each entry's launches per path, and the
-`highest` entries the training paths launch), the nvidia-smi line, and as the
-last line {"ok": true, "device": {...}}.
+     2 and 13 only;
+ 14. the long tail, the modules only the JAX tests reach (`run_long_tail`),
+     each card-vs-CPU gate a gap by magnitude (`mag_gap`) within 10x its
+     CPU test's tolerance (LT_TOL), each with a control that must fail it:
+     a. `find_surface_secant` through the flagship renderer's query_sdf, B=1,
+     64^2 rays, 24 + 8 samples, on the field kernel (9 launches, its two
+     new launch shapes against the plain field and timed), its z and hits
+     against the CPU's twin and the card's plain field (control: no secant
+     step); `mlp_init_pass` at stage1_config with grad, loss and field
+     gradient (control: the stratified grid); `forward_ddf` at 8 x 256
+     (control: the W+ rows shifted); b. every `set_encoder` name at the
+     flagship's EncoderConfig, B=1, both W+ codes (control: e4e at stage 0);
+     c. the align blocks at their widths on the flagship E1's map sizes
+     (control: DemodulatedConv2d without demodulation); d. `python -m
+     e3dge_torch.tools.calc_losses` in every mode on 5 seeded 256^2 pairs
+     within EVAL_TOL (control: two ground truths swapped), `python -m
+     e3dge_torch.tools.gallery_video` of 2 images x 8 views written and
+     read back (control: no --bounce). `python3 chip_smoke.py --phase 14`
+     runs phases 1, 2 and 14 only.
+The card-vs-CPU gates of phases 5, 7, 8, 9, 10c, 13 and 14 run their CPU
+reference in a child process (`CpuReferences`: ST1_CPU_THREADS threads, the
+lowest priority), started before the phase's card work and read after it:
+phase 7 starts one for 7, 8, 9 and 13, which runs beside phases 7 to 10
+(the rank phases 11 and 12 are CPU-bound), and phase 14's card runs come
+before phase 13, beside which their references run, its gates after it.
+Prints the wall seconds of each phase with its CPU references' and rank
+processes' seconds (`wall_table`), a `kernels` JSON line (with each entry's
+launches per path, and the `highest` entries the training paths launch),
+the nvidia-smi line, and as the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -177,7 +207,7 @@ import subprocess
 import sys
 import tempfile
 import time
-from collections import defaultdict
+from collections import OrderedDict, defaultdict
 
 import numpy as np
 import torch
@@ -226,6 +256,137 @@ STAGES = (
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+# The script's wall by phase, with the seconds its CPU references (child
+# processes, `CpuReferences`: from the start to the last job's end, in the
+# row of the phase that reads it) and its rank processes (`start_ranks`)
+# ran and the seconds this process waited on each: `phase` opens a row, and
+# `wall_table` is printed on a line before the last.
+WALL: dict[str, dict] = {}
+_CURRENT = {"phase": None, "t0": 0.0}
+# every child process started, so that none outlives the script
+CHILDREN: list[subprocess.Popen] = []
+
+
+def phase(label: str) -> None:
+    """Close the current phase's row of WALL and open `label`'s."""
+    now = time.perf_counter()
+    if _CURRENT["phase"] is not None:
+        WALL[_CURRENT["phase"]]["s"] += now - _CURRENT["t0"]
+    _CURRENT.update(phase=label, t0=now)
+    WALL.setdefault(label, {"s": 0.0, "cpu_reference_s": 0.0, "cpu_wait_s": 0.0, "ranks_s": 0.0,
+                            "ranks_wait_s": 0.0})
+
+
+def wall_add(key: str, seconds: float) -> None:
+    if _CURRENT["phase"] is not None:
+        WALL[_CURRENT["phase"]][key] += seconds
+
+
+def wall_table() -> dict:
+    """{phase: its wall seconds, its CPU references' and rank processes' seconds
+    and this process's waits on them}, with the total."""
+    phase(_CURRENT["phase"] or "end")
+    rows = {k: {f: round(v, 1) for f, v in r.items()} for k, r in WALL.items()}
+    return {"wall_s": rows, "total_s": round(sum(r["s"] for r in WALL.values()), 1)}
+
+
+def stop_children() -> None:
+    """Kill every child process session still running (a failed phase leaves
+    its CPU references and rank runs behind)."""
+    for proc in CHILDREN:
+        if proc.poll() is None:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(proc.pid, 9)
+            proc.wait()
+
+
+# CPU references run in a child process beside the card's work, at
+# ST1_CPU_THREADS threads (the numbers of an in-process run at those threads),
+# at the lowest priority so that the card's host thread keeps its core
+CPU_REFERENCE_TIMEOUT = 900
+
+
+class CpuReferences:
+    """CPU reference jobs run in order by one child process,
+    `chip_smoke.py --cpu-reference SPEC` with no card visible: `add` queues
+    a job (the name of a function of this module and its arguments), `start`
+    starts the child, `result` waits for one job's result (the child saves
+    each as it ends). Past CPU_REFERENCE_TIMEOUT seconds from its start the
+    child is killed and the phase fails, as it does when the child fails
+    (with its last output)."""
+
+    def __init__(self, label: str):
+        self.label, self.jobs, self.proc, self.waited = label, [], None, 0.0
+
+    def add(self, name: str, *args) -> int:
+        if self.proc is not None:
+            raise RuntimeError(f"CPU reference {self.label}: a job added after the start")
+        self.jobs.append((name, args))
+        return len(self.jobs) - 1
+
+    def start(self) -> "CpuReferences":
+        self.out = tempfile.mkdtemp(prefix=f"e3dge_cpu_ref_{self.label}_")
+        self.spec = os.path.join(self.out, "spec.pt")
+        torch.save({"jobs": self.jobs}, self.spec)
+        me = os.path.abspath(__file__)
+        self.log_file = open(os.path.join(self.out, "output.log"), "w")
+        self.proc = subprocess.Popen([sys.executable, me, "--cpu-reference", self.spec], cwd=os.path.dirname(me),
+                                     env={**os.environ, "CUDA_VISIBLE_DEVICES": ""}, stdout=self.log_file,
+                                     stderr=subprocess.STDOUT, start_new_session=True)
+        CHILDREN.append(self.proc)
+        self.t0, self.t0_wall, self.shown = time.perf_counter(), time.time(), 0
+        return self
+
+    def _output(self) -> str:
+        return open(os.path.join(self.out, "output.log")).read()
+
+    def result(self, i: int):
+        t_wait = time.perf_counter()
+        path = f"{self.spec}.{i}"
+        while not os.path.exists(path):
+            if self.proc.poll() is not None and not os.path.exists(path):
+                self.log_file.close()
+                raise AssertionError(f"CPU reference {self.label} exited {self.proc.returncode} before job {i}:\n"
+                                     f"{self._output()[-4000:]}")
+            if time.perf_counter() - self.t0 > CPU_REFERENCE_TIMEOUT:
+                stop_children()
+                raise AssertionError(f"CPU reference {self.label}: still running after {CPU_REFERENCE_TIMEOUT} s, "
+                                     "killed")
+            time.sleep(0.2)
+        result, seconds = torch.load(path, weights_only=False)
+        done, ended = time.perf_counter(), os.stat(path).st_mtime - self.t0_wall
+        self.waited += done - t_wait
+        wall_add("cpu_wait_s", done - t_wait)
+        lines = self._output().splitlines()
+        for line in lines[self.shown:]:
+            log(line)
+        self.shown = len(lines)
+        log(f"  CPU reference {self.label}, job {i} ({self.jobs[i][0]}, child process at {ST1_CPU_THREADS} "
+            f"threads): {seconds:.1f} s, ended {ended:.1f} s after the child's start; waited "
+            f"{done - t_wait:.1f} s")
+        if i == len(self.jobs) - 1:
+            self.proc.wait()
+            self.log_file.close()
+            wall_add("cpu_reference_s", ended)
+            shutil.rmtree(self.out)
+        return result
+
+
+def cpu_reference_child(spec: str) -> int:
+    """The child of `CpuReferences`: each job of SPEC run in order at
+    ST1_CPU_THREADS threads, its result and seconds saved as SPEC.<i> (by
+    way of a temporary file, so that a reader never sees half of one)."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    os.nice(19)
+    torch.set_num_threads(ST1_CPU_THREADS)
+    for i, (name, args) in enumerate(torch.load(spec, weights_only=False)["jobs"]):
+        t0 = time.perf_counter()
+        result = globals()[name](*args)
+        torch.save((result, time.perf_counter() - t0), f"{spec}.{i}.tmp")
+        os.replace(f"{spec}.{i}.tmp", f"{spec}.{i}")
+    return 0
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -735,59 +896,84 @@ def profile_flagship(model, call, wall_ms: float, iters: int = 5) -> None:
 def run_card_vs_cpu(device, bf16_img: torch.Tensor):
     """Phase 5: f32 image2image on the card and on the CPU with phase 4's
     weights, input and noise; then phase 4's bf16 image against the f32 one.
-    Returns the f32 card model with its device inputs and its image."""
+    Returns the f32 card model with its device inputs, its image and the
+    card-vs-CPU gate, which waits for the CPU reference (main runs it after
+    phase 6, so that the reference runs beside phase 6's card work)."""
     from e3dge_torch.config import flagship_config
 
     cfg = dataclasses.replace(flagship_config(), dtype="float32")
     cfg = dataclasses.replace(cfg, renderer=dataclasses.replace(cfg.renderer, field_dtype="float32")).validate()
-    card, outs = f32_card_vs_cpu(cfg, device)
-    ref = outs["cuda"]
+    card, ref, gate = f32_card_vs_cpu(cfg, device, defer=True)
     rel = float(((bf16_img - ref).abs() / (ref.abs().max() + 1e-6)).mean())
     ok = rel < TOL_BF16_VS_F32_REL
     log(f"  gen_imgs bf16 vs f32 on the card: mean rel err {rel:.4e} [tol {TOL_BF16_VS_F32_REL:g}] "
         f"{'ok' if ok else 'FAIL'}; f32 std {float(ref.std()):.4f}")
     if not ok:
         raise AssertionError("bf16 image2image drifted from f32")
-    return card, outs["cuda"]
+    return card, ref, gate
 
 
-def f32_card_vs_cpu(cfg, device, weights=None):
-    """Phase 5's gate: image2image of an f32 cfg on the card and on the CPU
-    with seeded weights (`init_weights`, then `weights(model)` if given),
-    input and decoder noise: gen_imgs within TOL_CARD_VS_CPU. Returns (the
-    card model with its device inputs, {device type: gen_imgs})."""
-    from e3dge_torch.models.e3dge import E3DGE
-    from e3dge_torch.utils.weights import init_weights
-
+def f32_model(cfg, dev, weights: str | None = None):
+    """(model, images, mean latents, decoder noise) of an f32 cfg on dev:
+    seeded weights (`init_weights`, then the function of this module named
+    `weights`, if given), input and decoder noise."""
+    model = seeded_e3dge(cfg, dev)
+    if weights is not None:
+        globals()[weights](model)
     images, ml = seeded_inputs(cfg, SEED)
-    noise = decoder_noise(cfg, 1, SEED)
-    outs = {}
-    for dev in (device, torch.device("cpu")):
-        t0 = time.perf_counter()
-        model = E3DGE(cfg, device=dev)
-        init_weights(model, SEED)
-        if weights is not None:
-            weights(model)
-        d_images, d_ml, d_noise = to_device(images, ml, noise, dev)
-        out = model.image2image(d_images, d_ml, noise=d_noise)
-        outs[dev.type] = out["res_render_out"]["gen_imgs"].float().cpu()
-        log(f"  f32 image2image on {dev.type}: {time.perf_counter() - t0:.1f} s (build + one call)")
-        if dev.type == "cuda":  # warm after the first call
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(5):
-                model.image2image(d_images, d_ml, noise=d_noise)
-            torch.cuda.synchronize()
-            log(f"  f32 image2image on the card (highest field): {(time.perf_counter() - t0) * 200:.2f} ms per inversion")
-            card = (model, d_images, d_ml, d_noise)
-        del model, out
-    diff = float((outs["cuda"] - outs["cpu"]).abs().max())
-    ok = diff <= TOL_CARD_VS_CPU and math.isfinite(diff)
-    log(f"  gen_imgs card vs CPU (f32, full width): max abs {diff:.3e} [tol {TOL_CARD_VS_CPU:g}] "
-        f"{'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise AssertionError("card and CPU image2image disagree")
-    return card, outs
+    return (model, *to_device(images, ml, decoder_noise(cfg, 1, SEED), dev))
+
+
+def f32_image2image_cpu(cfg, weights: str | None = None) -> torch.Tensor:
+    """The CPU reference of phase 5's gate (a `CpuReferences` job):
+    gen_imgs of `f32_model`'s image2image on the CPU."""
+    t0 = time.perf_counter()
+    model, images, ml, noise = f32_model(cfg, torch.device("cpu"), weights)
+    out = model.image2image(images, ml, noise=noise)["res_render_out"]["gen_imgs"].float()
+    log(f"  f32 image2image on cpu: {time.perf_counter() - t0:.1f} s (build + one call)")
+    return out
+
+
+def f32_card_vs_cpu(cfg, device, weights: str | None = None, defer: bool = False,
+                    refs: "CpuReferences | None" = None, job: int | None = None):
+    """Phase 5's gate: image2image of an f32 cfg on the card and on the CPU
+    (`f32_image2image_cpu`, in a child process started first, beside the
+    card's work) with `f32_model`'s weights, input and decoder noise:
+    gen_imgs within TOL_CARD_VS_CPU. Returns (the card model with its device
+    inputs, {device type: gen_imgs}); with `defer`, (the card model with its
+    inputs, the card's gen_imgs, the gate: a function that waits for the CPU
+    and returns that dict)."""
+    own = refs is None
+    refs = refs or CpuReferences("5")
+    if job is None:  # else queued already, as `raw_density_gate` queues 13c's
+        job = refs.add("f32_image2image_cpu", cfg, weights)
+    if own:
+        refs.start()
+    t0 = time.perf_counter()
+    model, d_images, d_ml, d_noise = f32_model(cfg, device, weights)
+    out = model.image2image(d_images, d_ml, noise=d_noise)
+    card_img = out["res_render_out"]["gen_imgs"].float().cpu()
+    log(f"  f32 image2image on cuda: {time.perf_counter() - t0:.1f} s (build + one call)")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        model.image2image(d_images, d_ml, noise=d_noise)
+    torch.cuda.synchronize()
+    log(f"  f32 image2image on the card (highest field): {(time.perf_counter() - t0) * 200:.2f} ms per inversion")
+    card = (model, d_images, d_ml, d_noise)
+    del out
+
+    def gate() -> dict:
+        outs = {"cuda": card_img, "cpu": refs.result(job)}
+        diff = float((outs["cuda"] - outs["cpu"]).abs().max())
+        ok = diff <= TOL_CARD_VS_CPU and math.isfinite(diff)
+        log(f"  gen_imgs card vs CPU (f32, full width): max abs {diff:.3e} [tol {TOL_CARD_VS_CPU:g}] "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("card and CPU image2image disagree")
+        return outs
+
+    return (card, card_img, gate) if defer else (card, gate())
 
 
 # phase 6c's novel camera: azimuth in radians, at the reference's elevation
@@ -981,19 +1167,74 @@ def st1_reduced_config():
                  encoder=dict(n_styles_decoder=6)).validate()
 
 
+# seeded builds, each made once per configuration on the CPU and copied to
+# the device for every use: a full-width build and its seeding take seconds
+# of host time, and the gates build the same seeded model many times
+_PRISTINE: dict = {}
+
+
+def _pristine(key, build):
+    if key not in _PRISTINE:
+        _PRISTINE[key] = build()
+    return _PRISTINE[key]
+
+
+def seeded_e3dge(cfg, device):
+    """E3DGE(cfg) on device with `init_weights(model, SEED)`: bitwise the
+    model E3DGE(cfg, device=device) and init_weights give (E3DGE builds on
+    the CPU and moves, init_weights draws on the CPU), copied from one
+    seeded CPU build per cfg."""
+    import copy
+
+    from e3dge_torch.models.e3dge import E3DGE
+    from e3dge_torch.utils.device import resolve_device
+    from e3dge_torch.utils.weights import init_weights
+
+    def build():
+        model = E3DGE(cfg, device="cpu")
+        init_weights(model, SEED)
+        return model
+
+    model = copy.deepcopy(_pristine(("e3dge", cfg), build)).to(device)
+    model.device = resolve_device(device)
+    return model
+
+
+def seeded_perceptual(device):
+    """make_perceptual_fns(device, seed=SEED), copied from one CPU build."""
+    import copy
+
+    from e3dge_torch.training.perceptual import make_perceptual_fns
+
+    return tuple(copy.deepcopy(net).to(device) for net in _pristine(("perceptual",),
+                                                                     lambda: make_perceptual_fns("cpu", seed=SEED)))
+
+
+def seeded_discriminator(d_res: int, device):
+    """The full-res D at d_res seeded from SEED + 3, frozen, copied from one
+    CPU build."""
+    import copy
+
+    from e3dge_torch.models.discriminator import Discriminator
+    from e3dge_torch.utils.weights import init_weights
+
+    def build():
+        d = Discriminator(d_res)
+        init_weights(d, SEED + 3)
+        return d
+
+    return copy.deepcopy(_pristine(("d", d_res), build)).to(device).requires_grad_(False)
+
+
 def st1_model(cfg, device):
     """(model, mean latents, lpips_fn, id_fn, train state): seeded weights
     (init_weights), phase 4's seeded mean latents, seeded perceptual nets, E0
     trainable under Adam at ST1_LR."""
-    from e3dge_torch.models.e3dge import E3DGE
     from e3dge_torch.training import steps
-    from e3dge_torch.training.perceptual import make_perceptual_fns
-    from e3dge_torch.utils.weights import init_weights
 
-    model = E3DGE(cfg, device=device)
-    init_weights(model, SEED)
+    model = seeded_e3dge(cfg, device)
     ml = to_device(*seeded_inputs(cfg, SEED), [], device)[1]
-    lpips_fn, id_fn = make_perceptual_fns(device, seed=SEED)
+    lpips_fn, id_fn = seeded_perceptual(device)
     state = steps.create_train_state(model, steps.STAGE1_TRAINABLE, ST1_LR, "adam")
     return model, ml, lpips_fn, id_fn, state
 
@@ -1236,74 +1477,111 @@ def worst_leaf(gaps: dict, limits: dict) -> tuple[str, float, float]:
     return k, gaps[k], limits[k]
 
 
-def st1_card_vs_cpu(device) -> None:
-    """Phase 7, last part: one stage-1 step of `st1_reduced_config` at B=2,
-    same weights, from one batch made on the card (the kernel samples it):
-    the loss terms and E0 gradients on the card, on the card with the eikonal
-    double backward cut (the control) and on the CPU at ST1_CPU_THREADS
-    threads (the reference), each compared with the reference."""
-    from unittest import mock
-
+def to_dev(x, dev):
+    """A tensor or a CameraParams of tensors on dev."""
     from e3dge_torch.render.camera import CameraParams
+
+    return CameraParams(*(f.to(dev) for f in x)) if isinstance(x, CameraParams) else x.to(dev)
+
+
+@contextlib.contextmanager
+def tf32_off():
+    """TF32 off in cuDNN and matmul for the block, the flags restored after."""
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+
+
+def reduced_batch(model, device, pair_same_id: bool) -> dict:
+    """The reduced gates' batch: decoder noise and `synthetic_sample` of B=2
+    from one generator seeded with SEED on the card (the kernel samples it),
+    moved to the CPU, which every run of the gate then reads."""
     from e3dge_torch.training import steps
 
-    def to(x, dev):
-        return CameraParams(*(f.to(dev) for f in x)) if isinstance(x, CameraParams) else x.to(dev)
+    gen = torch.Generator(device).manual_seed(SEED)
+    noise = steps.decoder_noise(model, 2, gen)
+    batch = model.synthetic_sample(2, 1.0, pair_same_id=pair_same_id, generator=gen, noise=noise)
+    return {"noise": [n.cpu() for n in noise], "batch": {k: to_dev(v, torch.device("cpu")) for k, v in batch.items()}}
 
+
+def st1_step(cfg, dev, data: dict, cut: bool = False) -> tuple[dict, dict]:
+    """One stage-1 step of cfg at B=2 on dev from `reduced_batch`'s data:
+    (the loss terms, E0's gradient on the CPU); `cut` cuts the eikonal
+    double backward (the control). On the CPU, a job of the child of
+    `start_cpu_reference`."""
+    from unittest import mock
+
+    from e3dge_torch.training import steps
+
+    dev = torch.device(dev)
     eikonal = steps.eikonal_term
 
     def cut_eikonal(renderer, pts, styles, create_graph=False):
         return eikonal(renderer, pts, styles, create_graph=False)
 
+    t0 = time.perf_counter()
+    model, ml, lpips_fn, id_fn, state = st1_model(cfg, dev)
+    b = {k: to_dev(v, dev) for k, v in data["batch"].items()}
+    with mock.patch.object(steps, "eikonal_term", cut_eikonal) if cut else contextlib.nullcontext():
+        loss, metrics, _ = steps.stage1_loss(model, b, ml, steps.STAGE1_LAMBDAS, lpips_fn, id_fn,
+                                             noise=[n.to(dev) for n in data["noise"]])
+    loss.backward()
+    out = ({k: float(metrics[k].detach()) for k in ("loss",) + ST1_TERMS},
+           {k: p.grad.detach().float().cpu() for k, p in state.params.items()})
+    name = "CPU" if dev.type == "cpu" else ("card, double backward cut" if cut else "card")
+    log(f"  reduced stage-1 step, {name}: {time.perf_counter() - t0:.1f} s (build + one step)")
+    return out
+
+
+def st1_card_vs_cpu(device, refs: "CpuReferences | None" = None):
+    """Phase 7, last part: one stage-1 step of `st1_reduced_config` at B=2,
+    same weights, from one batch made on the card (the kernel samples it):
+    the loss terms and E0 gradients on the card, on the card with the eikonal
+    double backward cut (the control) and on the CPU at ST1_CPU_THREADS
+    threads (the reference, `st1_step` in a `CpuReferences` child),
+    each compared with the reference. Returns the gate: a function that runs
+    the card's steps, waits for the CPU's and compares (main calls it after
+    phase 7's card work, beside which the reference runs)."""
     cfg = st1_reduced_config()
-    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    threads = torch.get_num_threads()
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    runs, data = {}, {}
-    try:
-        for name, dev, n_threads, cut in (("card", device, None, False),
-                                          ("card, double backward cut", device, None, True),
-                                          ("CPU", torch.device("cpu"), ST1_CPU_THREADS, False)):
-            t0 = time.perf_counter()
-            torch.set_num_threads(n_threads or threads)
-            model, ml, lpips_fn, id_fn, state = st1_model(cfg, dev)
-            if not data:  # on the card
-                gen = torch.Generator(dev).manual_seed(SEED)
-                data["noise"] = steps.decoder_noise(model, 2, gen)
-                data["batch"] = model.synthetic_sample(2, 1.0, generator=gen, noise=data["noise"])
-            b = {k: to(v, dev) for k, v in data["batch"].items()}
-            with mock.patch.object(steps, "eikonal_term", cut_eikonal) if cut else contextlib.nullcontext():
-                loss, metrics, _ = steps.stage1_loss(model, b, ml, steps.STAGE1_LAMBDAS, lpips_fn, id_fn,
-                                                     noise=[n.to(dev) for n in data["noise"]])
-            loss.backward()
-            runs[name] = ({k: float(metrics[k].detach()) for k in ("loss",) + ST1_TERMS},
-                          {k: p.grad.detach().float().cpu() for k, p in state.params.items()})
-            log(f"  reduced stage-1 step, {name}: {time.perf_counter() - t0:.1f} s (build + one step)")
-            del model, state, lpips_fn, id_fn, loss, metrics, b
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
-        torch.set_num_threads(threads)
-    m_ref, g_ref = runs["CPU"]
-    log("  terms card / CPU: " + ", ".join(f"{k} {runs['card'][0][k]:.6g} / {m_ref[k]:.6g}" for k in m_ref))
-    gaps = {}
-    for name in ("card", "card, double backward cut"):
-        m, g = runs[name]
-        term = max(abs(m[k] - m_ref[k]) / max(abs(m_ref[k]), 1e-30) for k in m_ref)
-        gaps[name] = (term, *grad_gap(g, g_ref))
-        log(f"  {name} vs CPU at {ST1_CPU_THREADS} threads: worst term relative error {term:.3e}; E0 gradient "
-            f"relative L2 {gaps[name][1]:.3e} over {len(g_ref)} leaves, worst leaf {gaps[name][3]:.3e} at "
-            f"{gaps[name][2]}")
-    term, glob, _, leaf = gaps["card"]
-    ok = term < ST1_TOL_TERM and glob < ST1_TOL_GRAD and leaf < ST1_TOL_LEAF
-    log(f"  card vs CPU [terms < {ST1_TOL_TERM:g}, gradient < {ST1_TOL_GRAD:g}, each leaf < {ST1_TOL_LEAF:g}]: "
-        f"{'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise AssertionError("the stage-1 step disagrees between the card and the CPU")
-    _, glob, _, leaf = gaps["card, double backward cut"]
-    seen = glob >= ST1_TOL_GRAD or leaf >= ST1_TOL_LEAF
-    log(f"  control (double backward cut) {'fails' if seen else 'PASSES'} the gradient gate")
-    if not seen:
-        raise AssertionError("the gradient gate does not see the eikonal double backward")
+    with tf32_off():
+        data = reduced_batch(st1_model(cfg, device)[0], device, pair_same_id=False)
+    own = refs is None
+    refs = refs or CpuReferences("7")
+    job = refs.add("st1_step", cfg, "cpu", data)
+    if own:
+        refs.start()
+
+    def gate() -> None:
+        with tf32_off():
+            runs = {"card": st1_step(cfg, device, data), "card, double backward cut": st1_step(cfg, device, data, True)}
+        torch.cuda.empty_cache()
+        runs["CPU"] = refs.result(job)
+        m_ref, g_ref = runs["CPU"]
+        log("  terms card / CPU: " + ", ".join(f"{k} {runs['card'][0][k]:.6g} / {m_ref[k]:.6g}" for k in m_ref))
+        gaps = {}
+        for name in ("card", "card, double backward cut"):
+            m, g = runs[name]
+            term = max(abs(m[k] - m_ref[k]) / max(abs(m_ref[k]), 1e-30) for k in m_ref)
+            gaps[name] = (term, *grad_gap(g, g_ref))
+            log(f"  {name} vs CPU at {ST1_CPU_THREADS} threads: worst term relative error {term:.3e}; E0 gradient "
+                f"relative L2 {gaps[name][1]:.3e} over {len(g_ref)} leaves, worst leaf {gaps[name][3]:.3e} at "
+                f"{gaps[name][2]}")
+        term, glob, _, leaf = gaps["card"]
+        ok = term < ST1_TOL_TERM and glob < ST1_TOL_GRAD and leaf < ST1_TOL_LEAF
+        log(f"  card vs CPU [terms < {ST1_TOL_TERM:g}, gradient < {ST1_TOL_GRAD:g}, each leaf < {ST1_TOL_LEAF:g}]: "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("the stage-1 step disagrees between the card and the CPU")
+        _, glob, _, leaf = gaps["card, double backward cut"]
+        seen = glob >= ST1_TOL_GRAD or leaf >= ST1_TOL_LEAF
+        log(f"  control (double backward cut) {'fails' if seen else 'PASSES'} the gradient gate")
+        if not seen:
+            raise AssertionError("the gradient gate does not see the eikonal double backward")
+
+    return gate
 
 
 # Phase 8: stage-2.2 training at stage2_config's full width (the stage2.2.sh
@@ -1357,20 +1635,13 @@ def st2_model(cfg, device, trainable, d_res: int):
     full-res D): seeded weights, phase 4's seeded mean latents, seeded
     perceptual nets, Adam at ST2_LR; the D seeded from SEED + 3, frozen
     outside its step."""
-    from e3dge_torch.models.discriminator import Discriminator
-    from e3dge_torch.models.e3dge import E3DGE
     from e3dge_torch.training import steps
-    from e3dge_torch.training.perceptual import make_perceptual_fns
-    from e3dge_torch.utils.weights import init_weights
 
-    model = E3DGE(cfg, device=device)
-    init_weights(model, SEED)
+    model = seeded_e3dge(cfg, device)
     ml = to_device(*seeded_inputs(cfg, SEED), [], device)[1]
-    lpips_fn, id_fn = make_perceptual_fns(device, seed=SEED)
+    lpips_fn, id_fn = seeded_perceptual(device)
     state = steps.create_train_state(model, trainable, ST2_LR, "adam", ema=True)
-    d = Discriminator(d_res).to(device)
-    init_weights(d, SEED + 3)
-    return model, ml, lpips_fn, id_fn, state, d.requires_grad_(False)
+    return model, ml, lpips_fn, id_fn, state, seeded_discriminator(d_res, device)
 
 
 def st2_expected(cfg) -> tuple[dict, dict, dict]:
@@ -1599,7 +1870,52 @@ def st2_reduced_config():
                  encoder=dict(n_styles_decoder=6)).validate()
 
 
-def st2_card_vs_cpu(device, cfg=None, field_gap: bool = False) -> None:
+ST2_GATE_LAMBDAS = dict(ST2_LAMBDAS, hit_prob_consistency_lambda=0.1, depth_lambda=0.1)
+ST2_GATE_TERMS = ("loss",) + ST2_TERMS + ("d_weight", "hit_prob_consistency", "depth_consistency")
+
+
+def st2_step(cfg, dev, data: dict, cut: bool = False, plain: bool = False) -> tuple[dict, dict]:
+    """One stage-2 cycle loss and backward of cfg at B=2 on dev from
+    `reduced_batch`'s data with every branch on (`st2_card_vs_cpu`): (the
+    loss terms, the trainable gradient on the CPU); `cut` detaches the SFT
+    modulations before the re-render (the control), `plain` runs the plain
+    field in place of the kernel. On the CPU, a job of the child of
+    `start_cpu_reference`."""
+    from unittest import mock
+
+    from e3dge_torch.models import volume_renderer
+    from e3dge_torch.ops import siren_field as sf
+    from e3dge_torch.training import steps
+
+    dev = torch.device(dev)
+    t0 = time.perf_counter()
+    model, ml, lpips_fn, id_fn, state, d = st2_model(cfg, dev, steps.STAGE22_TRAINABLE, min(cfg.decoder.size, 256))
+    b = {k: to_dev(v, dev) for k, v in data["batch"].items()}
+    probe = [p for k, p in state.params.items() if k.startswith("local.")]
+    render_cached = model.generator.render_cached
+
+    def detached(styles, cached, conditions, **kw):
+        return render_cached(styles, cached, tuple(t.detach() for t in conditions), **kw)
+
+    with contextlib.ExitStack() as stack:
+        if cut:
+            stack.enter_context(mock.patch.object(model.generator, "render_cached", detached))
+        if plain:
+            stack.enter_context(mock.patch.object(volume_renderer, "siren_field_full", sf.siren_field_reference))
+            stack.enter_context(mock.patch.object(volume_renderer, "siren_field_tex", sf.siren_field_tex_reference))
+        loss, metrics, _ = steps.cycle_loss(model, b, ml, ST2_GATE_LAMBDAS, lpips_fn, id_fn, use_ref_view_weight=True,
+                                            d_fn=d, adaptive_params=probe, noise=[n.to(dev) for n in data["noise"]])
+    loss.backward()
+    out = ({k: float(metrics[k].detach()) for k in ST2_GATE_TERMS},
+           {k: (torch.zeros_like(p) if p.grad is None else p.grad).detach().float().cpu()
+            for k, p in state.params.items()})
+    name = ("CPU" if dev.type == "cpu" else "card, SFT detached" if cut else "card, plain field" if plain
+            else "card")
+    log(f"  reduced stage-2 step, {name}: {time.perf_counter() - t0:.1f} s (build + one step)")
+    return out
+
+
+def st2_card_vs_cpu(device, cfg=None, field_gap: bool = False, refs: "CpuReferences | None" = None):
     """Phase 8, last part (13c with the bn netLocal's cfg and field_gap): one
     stage-2 cycle loss and backward of `st2_reduced_config` (or cfg) at B=2
     from one batch made on the card, with every
@@ -1607,98 +1923,61 @@ def st2_card_vs_cpu(device, cfg=None, field_gap: bool = False) -> None:
     weighting, both consistency terms, the aligner trained): the loss terms
     and the trainable gradient on the card, on the card with the SFT
     modulations detached before the re-render (the control) and on the CPU at
-    ST1_CPU_THREADS threads (the reference), within phase 7's limits. With
-    field_gap, the step also runs on the card through the plain field in
-    place of the kernel, and each leaf's limit grows by `leaf_limits`."""
-    from unittest import mock
-
-    from e3dge_torch.models import volume_renderer
-    from e3dge_torch.ops import siren_field as sf
-    from e3dge_torch.render.camera import CameraParams
+    ST1_CPU_THREADS threads (the reference, `st2_step` in a `CpuReferences`
+    child), within phase 7's limits. With field_gap, the step also
+    runs on the card through the plain field in place of the kernel, and
+    each leaf's limit grows by `leaf_limits`. Returns the gate, a function
+    that runs the card's steps, waits for the CPU's and compares."""
     from e3dge_torch.training import steps
 
-    def to(x, dev):
-        return CameraParams(*(f.to(dev) for f in x)) if isinstance(x, CameraParams) else x.to(dev)
-
-    def plain_field():
-        stack = contextlib.ExitStack()
-        stack.enter_context(mock.patch.object(volume_renderer, "siren_field_full", sf.siren_field_reference))
-        stack.enter_context(mock.patch.object(volume_renderer, "siren_field_tex", sf.siren_field_tex_reference))
-        return stack
-
     cfg = cfg or st2_reduced_config()
-    d_res = min(cfg.decoder.size, 256)
-    lambdas = dict(ST2_LAMBDAS, hit_prob_consistency_lambda=0.1, depth_lambda=0.1)
-    terms = ("loss",) + ST2_TERMS + ("d_weight", "hit_prob_consistency", "depth_consistency")
-    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    threads = torch.get_num_threads()
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    runs, data = {}, {}
-    plan = [("card", device, None, False, False), ("card, SFT detached", device, None, True, False),
-            ("CPU", torch.device("cpu"), ST1_CPU_THREADS, False, False)]
-    if field_gap:
-        plan.insert(2, ("card, plain field", device, None, False, True))
-    try:
-        for name, dev, n_threads, cut, plain in plan:
-            t0 = time.perf_counter()
-            torch.set_num_threads(n_threads or threads)
-            model, ml, lpips_fn, id_fn, state, d = st2_model(cfg, dev, steps.STAGE22_TRAINABLE, d_res)
-            if not data:  # on the card
-                gen = torch.Generator(dev).manual_seed(SEED)
-                data["noise"] = steps.decoder_noise(model, 2, gen)
-                data["batch"] = model.synthetic_sample(2, 1.0, pair_same_id=True, generator=gen, noise=data["noise"])
-            b = {k: to(v, dev) for k, v in data["batch"].items()}
-            probe = [p for k, p in state.params.items() if k.startswith("local.")]
-            render_cached = model.generator.render_cached
+    with tf32_off():
+        model = st2_model(cfg, device, steps.STAGE22_TRAINABLE, min(cfg.decoder.size, 256))[0]
+        data = reduced_batch(model, device, pair_same_id=True)
+        del model
+    own = refs is None
+    refs = refs or CpuReferences("8")
+    job = refs.add("st2_step", cfg, "cpu", data)
+    if own:
+        refs.start()
 
-            def detached(styles, cached, conditions, **kw):
-                return render_cached(styles, cached, tuple(t.detach() for t in conditions), **kw)
+    def gate() -> None:
+        with tf32_off():
+            runs = {"card": st2_step(cfg, device, data), "card, SFT detached": st2_step(cfg, device, data, cut=True)}
+            if field_gap:
+                runs["card, plain field"] = st2_step(cfg, device, data, plain=True)
+        torch.cuda.empty_cache()
+        runs["CPU"] = refs.result(job)
+        m_ref, g_ref = runs["CPU"]
+        log("  terms card / CPU: " + ", ".join(f"{k} {runs['card'][0][k]:.6g} / {m_ref[k]:.6g}" for k in m_ref))
+        limits = leaf_limits(leaf_gaps(runs["card"][1], runs["card, plain field"][1]) if field_gap else None, g_ref)
+        if field_gap:
+            k, gap, lim = worst_leaf(leaf_gaps(runs["card"][1], runs["card, plain field"][1]), {k: 1.0 for k in g_ref})
+            log(f"  card through the kernel vs through the plain field: worst leaf {gap:.3e} at {k}; each leaf's "
+                f"limit {ST1_TOL_LEAF:g} + {LEAF_FIELD_FACTOR:g}x its gap (largest {max(limits.values()):.3e})")
+        gaps = {}
+        for name in ("card", "card, SFT detached"):
+            m, g = runs[name]
+            term = max(abs(m[k] - m_ref[k]) / max(abs(m_ref[k]), 1e-6) for k in m_ref)
+            glob = grad_gap(g, g_ref)[0]
+            gaps[name] = (term, glob, *worst_leaf(leaf_gaps(g, g_ref), limits))
+            log(f"  {name} vs CPU at {ST1_CPU_THREADS} threads: worst term relative error {term:.3e}; trainable "
+                f"gradient relative L2 {glob:.3e} over {len(g_ref)} leaves, worst leaf {gaps[name][3]:.3e} "
+                f"[limit {gaps[name][4]:.3e}] at {gaps[name][2]}")
+        term, glob, _, leaf, lim = gaps["card"]
+        ok = term < ST1_TOL_TERM and glob < ST1_TOL_GRAD and leaf < lim
+        each = f"{ST1_TOL_LEAF:g} + {LEAF_FIELD_FACTOR:g}x the field's gap" if field_gap else f"{ST1_TOL_LEAF:g}"
+        log(f"  card vs CPU [terms < {ST1_TOL_TERM:g}, gradient < {ST1_TOL_GRAD:g}, each leaf < {each}]: "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("the stage-2 step disagrees between the card and the CPU")
+        _, glob, _, leaf, lim = gaps["card, SFT detached"]
+        seen = glob >= ST1_TOL_GRAD or leaf >= lim
+        log(f"  control (SFT detached) {'fails' if seen else 'PASSES'} the gradient gate")
+        if not seen:
+            raise AssertionError("the gradient gate does not see the SFT modulations' gradient")
 
-            with contextlib.ExitStack() as stack:
-                if cut:
-                    stack.enter_context(mock.patch.object(model.generator, "render_cached", detached))
-                if plain:
-                    stack.enter_context(plain_field())
-                loss, metrics, _ = steps.cycle_loss(model, b, ml, lambdas, lpips_fn, id_fn, use_ref_view_weight=True,
-                                                    d_fn=d, adaptive_params=probe,
-                                                    noise=[n.to(dev) for n in data["noise"]])
-            loss.backward()
-            runs[name] = ({k: float(metrics[k].detach()) for k in terms},
-                          {k: (torch.zeros_like(p) if p.grad is None else p.grad).detach().float().cpu()
-                           for k, p in state.params.items()})
-            log(f"  reduced stage-2 step, {name}: {time.perf_counter() - t0:.1f} s (build + one step)")
-            del model, state, lpips_fn, id_fn, d, loss, metrics, b, probe
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
-        torch.set_num_threads(threads)
-    m_ref, g_ref = runs["CPU"]
-    log("  terms card / CPU: " + ", ".join(f"{k} {runs['card'][0][k]:.6g} / {m_ref[k]:.6g}" for k in m_ref))
-    limits = leaf_limits(leaf_gaps(runs["card"][1], runs["card, plain field"][1]) if field_gap else None, g_ref)
-    if field_gap:
-        k, gap, lim = worst_leaf(leaf_gaps(runs["card"][1], runs["card, plain field"][1]), {k: 1.0 for k in g_ref})
-        log(f"  card through the kernel vs through the plain field: worst leaf {gap:.3e} at {k}; each leaf's limit "
-            f"{ST1_TOL_LEAF:g} + {LEAF_FIELD_FACTOR:g}x its gap (largest {max(limits.values()):.3e})")
-    gaps = {}
-    for name in ("card", "card, SFT detached"):
-        m, g = runs[name]
-        term = max(abs(m[k] - m_ref[k]) / max(abs(m_ref[k]), 1e-6) for k in m_ref)
-        glob = grad_gap(g, g_ref)[0]
-        gaps[name] = (term, glob, *worst_leaf(leaf_gaps(g, g_ref), limits))
-        log(f"  {name} vs CPU at {ST1_CPU_THREADS} threads: worst term relative error {term:.3e}; trainable "
-            f"gradient relative L2 {glob:.3e} over {len(g_ref)} leaves, worst leaf {gaps[name][3]:.3e} "
-            f"[limit {gaps[name][4]:.3e}] at {gaps[name][2]}")
-    term, glob, _, leaf, lim = gaps["card"]
-    ok = term < ST1_TOL_TERM and glob < ST1_TOL_GRAD and leaf < lim
-    each = f"{ST1_TOL_LEAF:g} + {LEAF_FIELD_FACTOR:g}x the field's gap" if field_gap else f"{ST1_TOL_LEAF:g}"
-    log(f"  card vs CPU [terms < {ST1_TOL_TERM:g}, gradient < {ST1_TOL_GRAD:g}, each leaf < {each}]: "
-        f"{'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise AssertionError("the stage-2 step disagrees between the card and the CPU")
-    _, glob, _, leaf, lim = gaps["card, SFT detached"]
-    seen = glob >= ST1_TOL_GRAD or leaf >= lim
-    log(f"  control (SFT detached) {'fails' if seen else 'PASSES'} the gradient gate")
-    if not seen:
-        raise AssertionError("the gradient gate does not see the SFT modulations' gradient")
+    return gate
 
 
 # Phase 9: the eval entry point (python -m e3dge_torch.eval) at the flagship
@@ -1999,56 +2278,71 @@ def eval_reduced_config():
                  encoder=dict(n_styles_decoder=6)).validate()
 
 
-def eval_card_vs_cpu(device, root: str) -> None:
+def eval_validation(cfg, dev, folder: str, work_dir: str) -> dict:
+    """`Runner.validation` of cfg at B=EVAL_BATCH over `folder` on dev with
+    seeded weights and phase 4's seeded mean latents: its scores. On the
+    CPU, a job of the child of `CpuReferences`."""
+    from e3dge_torch.runner import Runner
+
+    dev = torch.device(dev)
+    _, ml = seeded_inputs(cfg, SEED)
+    runner = Runner(seeded_e3dge(cfg, dev), ml, dev, work_dir=work_dir)
+    return runner.validation(folder, batch_size=EVAL_BATCH)
+
+
+def eval_card_vs_cpu(device, root: str, refs: "CpuReferences | None" = None):
     """Phase 9, second part: `Runner.validation` at `eval_reduced_config`,
     B=2 over 5 seeded PNGs (a ragged last batch), same weights, f32 with TF32
-    off, on the card and on the CPU (ST1_CPU_THREADS threads): loss_l2, mae,
-    ssim and PSNR within EVAL_TOL. Two controls, each on the card, must fall
+    off, on the card and on the CPU (ST1_CPU_THREADS threads, `eval_validation`
+    in a `CpuReferences` child): loss_l2, mae, ssim and PSNR within EVAL_TOL. Two
+    controls, each on the card, must fall
     outside: the field in bf16 (the serving kernel, a lower-precision
     render), and the last batch's padded row scored too (the folder with its
     last image repeated as a sixth, the fault the ragged batch's mask guards
-    against)."""
+    against). Returns the gate, a function that runs the card's calls, waits
+    for the CPU's and compares."""
     from e3dge_torch.config import _with
-    from e3dge_torch.models.e3dge import E3DGE
-    from e3dge_torch.runner import Runner
-    from e3dge_torch.utils.weights import init_weights
 
     cfg = eval_reduced_config()
     imgs = smooth_images(EVAL_IMAGES, cfg.pifu.load_size, SEED + 1)
     folders = {"": write_folder(os.path.join(root, "cmp"), imgs),
                "padded": write_folder(os.path.join(root, "cmp_padded"), np.concatenate([imgs, imgs[-1:]]))}
-    _, ml = seeded_inputs(cfg, SEED)
-    threads = torch.get_num_threads()
-    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    own = refs is None
+    refs = refs or CpuReferences("9")
+    job = refs.add("eval_validation", cfg, "cpu", folders[""], os.path.join(root, "cmp_cpu"))
+    if own:
+        refs.start()
     controls = ("card, the field in bf16", "card, the padded row scored")
-    scores = {}
-    try:
-        for name, dev, folder, run_cfg in (
-                ("card", device, "", cfg), ("CPU", torch.device("cpu"), "", cfg),
-                (controls[0], device, "", _with(cfg, renderer=dict(field_dtype="bfloat16")).validate()),
-                (controls[1], device, "padded", cfg)):
-            t0 = time.perf_counter()
-            torch.set_num_threads(ST1_CPU_THREADS if dev.type == "cpu" else threads)
-            model = E3DGE(run_cfg, device=dev)
-            init_weights(model, SEED)
-            runner = Runner(model, ml, dev, work_dir=os.path.join(root, f"cmp_{len(scores)}"))
-            scores[name] = runner.validation(folders[folder], batch_size=EVAL_BATCH)
-            log(f"  validation on the {name}: {time.perf_counter() - t0:.1f} s, {scores[name]['num_images']} images; "
-                + ", ".join(f"{k} {scores[name][k]:.8f}" for k in EVAL_TOL))
-            del model, runner
-    finally:
-        torch.set_num_threads(threads)
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
-    for name in ("card", *controls):
-        gaps = {k: abs(scores[name][k] - scores["CPU"][k]) for k in EVAL_TOL}
-        inside = all(gaps[k] <= EVAL_TOL[k] for k in EVAL_TOL)
-        log(f"  {name} vs CPU: " + ", ".join(f"{k} {gaps[k]:.3e} [tol {EVAL_TOL[k]:g}]" for k in EVAL_TOL)
-            + f": {'inside' if inside else 'outside'} the tolerance")
-        if name == "card" and not inside:
-            raise AssertionError("validation's scores disagree between the card and the CPU")
-        if name != "card" and inside:
-            raise AssertionError(f"the control ({name}) passes the card-vs-CPU gate")
+
+    def show(name: str, score: dict, seconds: float) -> None:
+        log(f"  validation on the {name}: {seconds:.1f} s, {score['num_images']} images; "
+            + ", ".join(f"{k} {score[k]:.8f}" for k in EVAL_TOL))
+
+    def gate() -> None:
+        scores = {}
+        with tf32_off():
+            for name, folder, run_cfg in (
+                    ("card", "", cfg),
+                    (controls[0], "", _with(cfg, renderer=dict(field_dtype="bfloat16")).validate()),
+                    (controls[1], "padded", cfg)):
+                t0 = time.perf_counter()
+                scores[name] = eval_validation(run_cfg, device, folders[folder],
+                                               os.path.join(root, f"cmp_{len(scores)}"))
+                show(name, scores[name], time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        scores["CPU"] = refs.result(job)
+        show("CPU", scores["CPU"], time.perf_counter() - t0)
+        for name in ("card", *controls):
+            gaps = {k: abs(scores[name][k] - scores["CPU"][k]) for k in EVAL_TOL}
+            inside = all(gaps[k] <= EVAL_TOL[k] for k in EVAL_TOL)
+            log(f"  {name} vs CPU: " + ", ".join(f"{k} {gaps[k]:.3e} [tol {EVAL_TOL[k]:g}]" for k in EVAL_TOL)
+                + f": {'inside' if inside else 'outside'} the tolerance")
+            if name == "card" and not inside:
+                raise AssertionError("validation's scores disagree between the card and the CPU")
+            if name != "card" and inside:
+                raise AssertionError(f"the control ({name}) passes the card-vs-CPU gate")
+
+    return gate
 
 
 def run_host_videos(device, root: str) -> dict:
@@ -2306,6 +2600,25 @@ def _groups(work: str) -> dict[str, list[torch.Tensor]]:
     }
 
 
+# a run's final-state groups, kept for the few runs a phase compares most
+# (each loads ~1 GB of checkpoints): keyed by the groups function, the work
+# directory and its checkpoint's modification time
+_GROUPS_CACHE: OrderedDict = OrderedDict()
+GROUPS_CACHE_SIZE = 6
+
+
+def cached_groups(groups, work: str) -> dict:
+    """groups(work), read once while the run's checkpoint is unchanged."""
+    ck = os.path.join(work, "models_final", "variables.pt")
+    key = (groups, work, os.stat(ck).st_mtime_ns if os.path.exists(ck) else None)
+    if key not in _GROUPS_CACHE:
+        _GROUPS_CACHE[key] = groups(work)
+        while len(_GROUPS_CACHE) > GROUPS_CACHE_SIZE:
+            _GROUPS_CACHE.popitem(last=False)
+    _GROUPS_CACHE.move_to_end(key)
+    return _GROUPS_CACHE[key]
+
+
 def run_gap(a: str, b: str, first_step: int, groups=_groups, skip=()) -> tuple[float, float, str]:
     """(the largest relative gap of a logged metric from first_step on, the
     largest relative L2 gap of a final-state group, that group and that
@@ -2321,7 +2634,7 @@ def run_gap(a: str, b: str, first_step: int, groups=_groups, skip=()) -> tuple[f
                 scale[k] = max(scale.get(k, 1e-6), abs(v))
     loss, metric = max((abs(recs[0][s][k] - v) / scale[k], f"{k}@{s}") for s, r in recs[1].items()
                        if s >= first_step for k, v in r.items() if k in scale)
-    ga, gb = groups(a), groups(b)
+    ga, gb = cached_groups(groups, a), cached_groups(groups, b)
     gaps = {}
     for name, want in gb.items():
         x = torch.cat([t.double().flatten() for t in ga[name]])
@@ -2362,37 +2675,39 @@ def st1_rank_limits(works: list[str]) -> tuple[float, float]:
     return rank_limits(works, f"11a one-rank runs ({DP_ST1_ITERS} iterations)", _st1_groups)
 
 
-def run_resume(device, root: str) -> None:
+def run_resume(device, root: str) -> dict:
     """Phase 10b: `train.main` at phase 10a's configuration and switches
     plus --train-volume-d (both D states through the checkpoint), no
-    --data: TR_ITERS iterations SPREAD_RUNS times (the card's spread,
+    --data: RANK_REF_ITERS iterations SPREAD_RUNS times (the card's spread,
     `spread_limits`), then half of them with --ckpt-every, then --resume to
-    TR_ITERS. The resumed run's logged
+    RANK_REF_ITERS, each in this process. The resumed run's logged
     metrics after the resume and its final state (trained modules, BN
     statistics, E optimizer moments, EMA, both Ds and their optimizers)
     against the first uninterrupted run, within RESUME_FACTOR x the spread
     (at least RESUME_FLOOR); a control resume that drops the E optimizer's
-    state must fall outside."""
+    state must fall outside. The uninterrupted runs are the one-rank
+    reference of phases 11b and 12 (their flags, `rank_limits`): returns
+    `one_rank_reference` of them, as `rank_reference` returns its own."""
     from e3dge_torch.training import steps, train
 
-    base = [*TR_FLAGS, "--train-volume-d", "--saveimg-every", "0", *perceptual_files(root)]
-    half = TR_ITERS // 2
+    argv = [*TR_FLAGS, "--train-volume-d", "--saveimg-every", "0", *perceptual_files(root)]
+    half = RANK_REF_ITERS // 2
     runs = {}
 
     def run(name, *extra):
         t0 = time.perf_counter()
         work = os.path.join(root, "resume", name)
-        if train.main([*base, *extra, "--work-dir", work]) != 0:
+        if train.main([*argv, *extra, "--work-dir", work]) != 0:
             raise AssertionError(f"trainer run {name} failed")
         log(f"  [10b] run {name} ({' '.join(extra)}): {time.perf_counter() - t0:.1f} s")
         runs[name] = work
         return work
 
-    wholes = [run(f"whole_{i}", "--iters", str(TR_ITERS)) for i in range(SPREAD_RUNS)]
+    wholes = [run(f"whole_{i}", "--iters", str(RANK_REF_ITERS)) for i in range(SPREAD_RUNS)]
     part = run("part", "--iters", str(half), "--ckpt-every", str(half))
     shutil.rmtree(os.path.join(part, "models_final"))  # the same state as models_latest
     latest = os.path.join(part, "models_latest")
-    run("part", "--iters", str(TR_ITERS), "--resume", latest)
+    run("part", "--iters", str(RANK_REF_ITERS), "--resume", latest)
 
     def no_optimizer(fn):
         def load(self, sd):
@@ -2400,7 +2715,7 @@ def run_resume(device, root: str) -> None:
         return load
 
     with patched(steps.TrainState, load_state_dict=no_optimizer):
-        run("control", "--iters", str(TR_ITERS), "--resume", latest)
+        run("control", "--iters", str(RANK_REF_ITERS), "--resume", latest)
     lim_loss, lim_state = spread_limits(wholes, "uninterrupted runs")
     for name in ("part", "control"):
         loss, state, where = run_gap(runs[name], wholes[0], half + 1)
@@ -2412,30 +2727,44 @@ def run_resume(device, root: str) -> None:
             raise AssertionError("the resumed run drifts from the uninterrupted one")
         if name == "control" and state <= lim_state:
             raise AssertionError("the control resume without the optimizer state passes the resume gate")
-    for work in set(runs.values()):
+    ref = one_rank_reference(wholes, argv)
+    for work in set(runs.values()) - {wholes[0]}:
         shutil.rmtree(work)
+    torch.cuda.empty_cache()  # the rank runs after it share the card with this process
+    return ref
+
+
+def one_rank_reference(works: list[str], argv: list[str]) -> dict:
+    """The one-rank reference of phases 11b and 12 from SPREAD_RUNS runs of
+    argv at RANK_REF_ITERS iterations (phase 10b's uninterrupted runs, or
+    `rank_reference`'s): the first run's work directory, the flags and
+    `rank_limits` over all the runs (psnr not read, as the rank gates do
+    not read it)."""
+    lim_loss, lim_state = rank_limits(works, f"one-rank runs ({RANK_REF_ITERS} iterations)")
+    return {"work": works[0], "argv": [*argv, "--iters", str(RANK_REF_ITERS)], "lim_loss": lim_loss,
+            "lim_state": lim_state}
 
 
 def rank_reference(root: str) -> dict:
-    """The one-rank reference of phases 11b and 12: phase 10b's flags at
-    RANK_REF_ITERS iterations, run SPREAD_RUNS times in this process (the
-    card's spread). Returns the first run's work directory, its flags and
-    `spread_limits` (psnr not read, as the rank gates do not read it)."""
+    """The one-rank reference of phases 11b and 12 when they run without
+    phase 10 (`--phase 11`, `--phase 12`; the whole script takes phase 10b's
+    uninterrupted runs, `run_resume`): phase 10b's flags at RANK_REF_ITERS
+    iterations, run SPREAD_RUNS times in this process (the card's spread),
+    as `one_rank_reference`."""
     from e3dge_torch.training import train
 
-    argv = [*TR_FLAGS, "--train-volume-d", "--saveimg-every", "0", *perceptual_files(root),
-            "--iters", str(RANK_REF_ITERS)]
+    argv = [*TR_FLAGS, "--train-volume-d", "--saveimg-every", "0", *perceptual_files(root)]
     works = [os.path.join(root, "dp", f"one_rank_{i}") for i in range(SPREAD_RUNS)]
     for work in works:
         t0 = time.perf_counter()
-        if train.main([*argv, "--work-dir", work]) != 0:
+        if train.main([*argv, "--iters", str(RANK_REF_ITERS), "--work-dir", work]) != 0:
             raise AssertionError(f"the one-rank reference run {work} failed")
         log(f"  one rank, {os.path.basename(work)}: {time.perf_counter() - t0:.1f} s (in this process)")
-    lim_loss, lim_state = rank_limits(works, f"one-rank runs ({RANK_REF_ITERS} iterations)")
+    ref = one_rank_reference(works, argv)
     for work in works[1:]:
         shutil.rmtree(work)
     torch.cuda.empty_cache()  # the rank runs after it share the card with this process
-    return {"work": works[0], "argv": argv, "lim_loss": lim_loss, "lim_state": lim_state}
+    return ref
 
 
 def write_now_layout(root: str) -> str:
@@ -2493,8 +2822,11 @@ def run_now(device, root: str) -> dict:
     a mesh per image, finite mean / median / std, ms per image split into
     inversion + mesh, ICP and scan-to-mesh; then `now_scan_error` on the
     first mesh and its subsampled scan, card against CPU within NOW_TOL,
-    with the control outside. Returns the measured launches per batch by
-    (entry, precision)."""
+    with the control outside, the CPU's run (`now_scan_error_run`) in a
+    `CpuReferences` child. Returns the measured launches per batch by
+    (entry, precision) and the card-vs-CPU gate, a function that waits for
+    the CPU's run and compares (main runs 10c first and this gate after 10a
+    and 10b, beside whose card work the reference runs)."""
     from e3dge_torch import eval as teval
     from e3dge_torch.training import eval3d
     from e3dge_torch.utils.mesh import load_obj, load_obj_vertices
@@ -2548,22 +2880,39 @@ def run_now(device, root: str) -> dict:
             return s_, r_, t_ + toward / np.linalg.norm(toward)
         return call
 
+    refs = CpuReferences("10c")
+    job = refs.add("now_scan_error_run", verts, faces, scan, lms, "cpu")
+    refs.start()
     results = {}
-    for name, dev, shift in (("card", device, False), ("CPU", "cpu", False), ("card, mesh moved 1 unit", device, True)):
-        t0 = time.perf_counter()
+    for name, shift in (("card", False), ("card, mesh moved 1 unit", True)):
         with patched(eval3d, icp_align=moved) if shift else contextlib.nullcontext():
-            d = eval3d.now_scan_error(verts, faces, scan, scan_lms=lms, device=dev)
-        results[name] = (float(d.mean()), float(np.median(d)))
-        log(f"  now_scan_error on the {name}: mean {results[name][0]:.6f}, median {results[name][1]:.6f} over "
-            f"{len(d)} scan points, {(time.perf_counter() - t0) * 1e3:.1f} ms")
-    for name in ("card", "card, mesh moved 1 unit"):
-        gaps = [abs(a - b) for a, b in zip(results[name], results["CPU"])]
-        inside = max(gaps) <= NOW_TOL
-        log(f"  {name} vs CPU: mean {gaps[0]:.3e}, median {gaps[1]:.3e} scan units [tol {NOW_TOL:g}]: "
-            f"{'inside' if inside else 'outside'}")
-        if (name == "card") != inside:
-            raise AssertionError(f"now_scan_error card-vs-CPU gate: {name} {'outside' if name == 'card' else 'inside'}")
-    return {k: v // batches for k, v in split.items()}
+            results[name] = now_scan_error_run(verts, faces, scan, lms, device, name)
+
+    def gate() -> None:
+        results["CPU"] = refs.result(job)
+        for name in ("card", "card, mesh moved 1 unit"):
+            gaps = [abs(a - b) for a, b in zip(results[name], results["CPU"])]
+            inside = max(gaps) <= NOW_TOL
+            log(f"  {name} vs CPU: mean {gaps[0]:.3e}, median {gaps[1]:.3e} scan units [tol {NOW_TOL:g}]: "
+                f"{'inside' if inside else 'outside'}")
+            if (name == "card") != inside:
+                raise AssertionError(f"now_scan_error card-vs-CPU gate: {name} "
+                                     f"{'outside' if name == 'card' else 'inside'}")
+
+    return {k: v // batches for k, v in split.items()}, gate
+
+
+def now_scan_error_run(verts, faces, scan, lms, dev, name: str = "CPU") -> tuple[float, float]:
+    """10c's `now_scan_error` of a mesh and its scan on dev: (mean, median)
+    over the scan points. On the CPU, a job of the child of `CpuReferences`."""
+    from e3dge_torch.training import eval3d
+
+    t0 = time.perf_counter()
+    d = eval3d.now_scan_error(verts, faces, scan, scan_lms=lms, device=dev)
+    out = (float(d.mean()), float(np.median(d)))
+    log(f"  now_scan_error on the {name}: mean {out[0]:.6f}, median {out[1]:.6f} over {len(d)} scan points, "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    return out
 
 
 # Phase 11: data parallelism across ranks (e3dge_torch.parallel) on the one
@@ -2707,8 +3056,8 @@ def profile_window(spec: dict, rank: int, report: dict) -> None:
 def rank_child(spec_path: str) -> int:
     """One rank of a multi-rank run of phase 11 or dp_scaling.py (`python -m
     torch.distributed.run ... chip_smoke.py --rank-child SPEC`, or alone for
-    a world of one): SPEC's control applied (BN sync or gradient averaging
-    off), the field launch counts set to 0, `train.main(argv)` (profiled
+    a world of one): SPEC's control applied (BN sync, gradient averaging or
+    the sp gradient sum off), the field launch counts set to 0, `train.main(argv)` (profiled
     with SPEC's "profile_from", `profile_window`) or the data-parallel
     serving call run, and the rank's launches, seconds and (serving) images
     written to SPEC's out directory."""
@@ -2792,6 +3141,7 @@ def start_ranks(root: str, name: str, spec: dict, nproc: int | None = DP_RANKS, 
     log_file = open(os.path.join(out, "output.log"), "w")
     proc = subprocess.Popen([sys.executable, *launcher, me, "--rank-child", spec_path], cwd=os.path.dirname(me),
                             env=env, stdout=log_file, stderr=subprocess.STDOUT, start_new_session=True)
+    CHILDREN.append(proc)
     return {"name": name, "proc": proc, "out": out, "log": log_file, "nproc": nproc or 1, "t0": time.perf_counter()}
 
 
@@ -2799,7 +3149,7 @@ def wait_ranks(run: dict, timeout: float = DP_TIMEOUT) -> list[dict]:
     """The ranks' reports once the run exits 0 within `timeout` seconds of
     its start; past it the whole session is killed and the phase fails, as
     it does on a non-zero exit (with the run's last output)."""
-    proc = run["proc"]
+    proc, t_wait = run["proc"], time.perf_counter()
     try:
         proc.wait(timeout=max(timeout - (time.perf_counter() - run["t0"]), 1.0))
     except subprocess.TimeoutExpired:
@@ -2808,6 +3158,8 @@ def wait_ranks(run: dict, timeout: float = DP_TIMEOUT) -> list[dict]:
         raise AssertionError(f"run {run['name']}: still running after {timeout} s, killed") from None
     finally:
         run["log"].close()
+        wall_add("ranks_s", time.perf_counter() - run["t0"])
+        wall_add("ranks_wait_s", time.perf_counter() - t_wait)
     text = open(os.path.join(run["out"], "output.log")).read()
     if proc.returncode != 0:
         raise AssertionError(f"run {run['name']} exited {proc.returncode}:\n{text[-4000:]}")
@@ -2913,7 +3265,16 @@ def run_dp(device, root: str, ref: dict) -> dict:
     for work in (*a_work.values(), *b_work.values()):
         shutil.rmtree(work)
 
-    # c. serving
+    # c. serving, beside d's three runs (started first: they take the longest)
+    torch.cuda.empty_cache()
+    one_iter = [*DP_ST1_FLAGS, "--iters", "1", *perceptual_files(root)]
+    d_work = {n: os.path.join(root, "dp", n) for n in ("nccl_world1", "no_group_a", "no_group_b")}
+    d_runs = [start_ranks(root, "nccl_world1", {"kind": "train", "deterministic": True, "check_collectives": True,
+                                                "argv": [*one_iter, "--dist-backend", "nccl", "--work-dir",
+                                                         d_work["nccl_world1"]]}, nproc=1)]
+    d_runs += [start_ranks(root, n, {"kind": "train", "deterministic": True,
+                                     "argv": [*one_iter, "--work-dir", d_work[n]]}, nproc=None)
+               for n in ("no_group_a", "no_group_b")]
     serve = start_ranks(root, "serve_ranks", {"kind": "serve", "backend": "gloo"})
     model, images, ml, noise = dp_serving_inputs(device)
     runner = Runner(model, ml, device, work_dir=os.path.join(root, "dp"))
@@ -2939,15 +3300,7 @@ def run_dp(device, root: str, ref: dict) -> dict:
     if not (err <= TOL_DP_SERVING and rel <= TOL_BF16_VS_F32_REL):
         raise AssertionError("11c: image2image across ranks disagrees with one rank")
 
-    # d. NCCL at world 1
-    one_iter = [*DP_ST1_FLAGS, "--iters", "1", *perceptual_files(root)]
-    d_work = {n: os.path.join(root, "dp", n) for n in ("nccl_world1", "no_group_a", "no_group_b")}
-    d_runs = [start_ranks(root, "nccl_world1", {"kind": "train", "deterministic": True, "check_collectives": True,
-                                                "argv": [*one_iter, "--dist-backend", "nccl", "--work-dir",
-                                                         d_work["nccl_world1"]]}, nproc=1)]
-    d_runs += [start_ranks(root, n, {"kind": "train", "deterministic": True,
-                                     "argv": [*one_iter, "--work-dir", d_work[n]]}, nproc=None)
-               for n in ("no_group_a", "no_group_b")]
+    # d. NCCL at world 1 (its runs started with c's)
     (nccl, alone, _) = (wait_ranks(r)[0] for r in d_runs)
     nondet = sorted({line.split("does not have a deterministic")[0].split()[-1] for n in d_work
                      for line in open(os.path.join(root, "dp", n, "output.log"))
@@ -3219,90 +3572,114 @@ def bf16_vs_f32_loss(device, stage: str) -> dict:
     return {**losses, "rel": rel}
 
 
-def bf16_card_vs_cpu(device, stage: str) -> dict:
+def bf16_step(stage: str, cfg, dev, data: dict, cut: bool = False) -> tuple[dict, dict]:
+    """One step's loss and backward of `bf16_card_vs_cpu` (stage_model of
+    cfg with the aligner trained, `step_loss`) on dev from `reduced_batch`'s
+    data: (the loss terms, {part: its gradient on the trained parameters, on
+    the CPU}). On the CPU, a job of the child of `CpuReferences`."""
+    dev = torch.device(dev)
+    parts = BF16_GATE_PARTS[stage]
+    terms = ("loss",) + (ST1_TERMS if stage == "1" else ST2_TERMS)
+    t0 = time.perf_counter()
+    model, ml, lpips_fn, id_fn, params, d = stage_model(stage, cfg, dev, fix_ada=False)
+    b = {k: to_dev(v, dev) for k, v in data["batch"].items()}
+    loss, metrics = step_loss(stage, model, b, ml, lpips_fn, id_fn, [n.to(dev) for n in data["noise"]], d, cut=cut)
+    grads = {}
+    for part in parts:
+        g = torch.autograd.grad(metrics[part], list(params.values()), retain_graph=part != parts[-1],
+                                allow_unused=True)
+        grads[part] = {k: (torch.zeros_like(p) if gk is None else gk).detach().float().cpu()
+                       for (k, p), gk in zip(params.items(), g)}
+    name = ("CPU" if cfg.dtype == "bfloat16" else "CPU f32") if dev.type == "cpu" else (
+        "card, control" if cut else "card")
+    log(f"  [{'13a' if stage == '1' else '13b'}] reduced bf16 step, {name}: {time.perf_counter() - t0:.1f} s "
+        "(build + one step)")
+    return {k: float(metrics[k].detach()) for k in terms}, grads
+
+
+# the gradients held by the reduced bf16 gate: the whole loss's and, in stage
+# 1, its 3D shape terms' (the SDF targets' and the eikonal double backward's:
+# E0's whole gradient in bf16 moves by as much as the eikonal part weighs)
+BF16_GATE_PARTS = {"1": ("loss", "loss_shape"), "2": ("loss",)}
+
+
+def bf16_card_vs_cpu(device, stage: str, refs: "CpuReferences"):
     """13a / 13b, last part: one step's loss and backward of phase 7's or 8's
     reduced config (8's at the recipe's switches, the aligner trained) in
     the bf16 recipe, on the card
-    and on the CPU (ST1_CPU_THREADS threads), from one batch made on the card
-    by the bf16 model, TF32 off. The limits are BF16_GATE_FACTOR x the CPU's
+    and on the CPU (ST1_CPU_THREADS threads, `bf16_step` in phase 13's `CpuReferences`
+    child), from one batch made on the card by the bf16 model, TF32
+    off. The limits are BF16_GATE_FACTOR x the CPU's
     own bf16-vs-f32 gap on that batch: the worst term's relative gap and the
     trained gradient's relative L2 over all leaves, in stage 1 also the
     gradient of the 3D shape terms alone. The card's bf16 run against the
     CPU's must stay within each; the control (phase 7's or 8's) must fall
-    outside one."""
-    from e3dge_torch.render.camera import CameraParams
-    from e3dge_torch.training import steps
-
-    def to(x, dev):
-        return CameraParams(*(f.to(dev) for f in x)) if isinstance(x, CameraParams) else x.to(dev)
-
+    outside one. Returns the gate, a function that runs the card's steps,
+    waits for the CPU's, compares and returns the gaps and limits."""
     tag = "13a" if stage == "1" else "13b"
     base = st1_reduced_config() if stage == "1" else st2_reduced_config()
     # stage 2 at train_stage2.2.sh's switches (no ref-view weighting, no
     # consistency terms, the fixed D weight), the aligner trained
-    # the gradients held: the whole loss's and, in stage 1, its 3D shape
-    # terms' (the SDF targets' and the eikonal double backward's: E0's whole
-    # gradient in bf16 moves by as much as the eikonal part weighs)
-    parts = ("loss", "loss_shape") if stage == "1" else ("loss",)
-    terms = ("loss",) + (ST1_TERMS if stage == "1" else ST2_TERMS)
-    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    threads = torch.get_num_threads()
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    runs, data = {}, {}
-    try:
-        for name, dev, cfg, cut in (("card", device, bf16_recipe(base), False),
-                                    ("card, control", device, bf16_recipe(base), True),
-                                    ("CPU", torch.device("cpu"), bf16_recipe(base), False),
-                                    ("CPU f32", torch.device("cpu"), base, False)):
-            t0 = time.perf_counter()
-            torch.set_num_threads(ST1_CPU_THREADS if dev.type == "cpu" else threads)
-            model, ml, lpips_fn, id_fn, params, d = stage_model(stage, cfg, dev, fix_ada=False)
-            if not data:  # on the card, by the bf16 model
-                gen = torch.Generator(dev).manual_seed(SEED)
-                data["noise"] = steps.decoder_noise(model, 2, gen)
-                data["batch"] = model.synthetic_sample(2, 1.0, pair_same_id=stage != "1", generator=gen,
-                                                       noise=data["noise"])
-            b = {k: to(v, dev) for k, v in data["batch"].items()}
-            loss, metrics = step_loss(stage, model, b, ml, lpips_fn, id_fn, [n.to(dev) for n in data["noise"]], d,
-                                      cut=cut)
-            grads = {}
-            for part in parts:
-                g = torch.autograd.grad(metrics[part], list(params.values()), retain_graph=part != parts[-1],
-                                        allow_unused=True)
-                grads[part] = {k: (torch.zeros_like(p) if gk is None else gk).detach().float().cpu()
-                               for (k, p), gk in zip(params.items(), g)}
-            runs[name] = ({k: float(metrics[k].detach()) for k in terms}, grads)
-            log(f"  [{tag}] reduced bf16 step, {name}: {time.perf_counter() - t0:.1f} s (build + one step)")
-            del model, params, lpips_fn, id_fn, d, loss, metrics, b, grads
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
-        torch.set_num_threads(threads)
+    parts = BF16_GATE_PARTS[stage]
+    with tf32_off():  # on the card, by the bf16 model
+        data = reduced_batch(stage_model(stage, bf16_recipe(base), device, fix_ada=False)[0], device,
+                             pair_same_id=stage != "1")
+    jobs = [refs.add("bf16_step", stage, bf16_recipe(base), "cpu", data),
+            refs.add("bf16_step", stage, base, "cpu", data)]
 
-    def gap(a, b) -> dict:
-        """The worst term's relative gap and each gradient's relative L2."""
-        (ma, ga), (mb, gb) = runs[a], runs[b]
-        return {"term": max(abs(ma[k] - mb[k]) / max(abs(mb[k]), 1e-6) for k in mb),
-                **{f"gradient of {p}": grad_gap(ga[p], gb[p])[0] for p in parts}}
+    def gate() -> dict:
+        with tf32_off():
+            runs = {"card": bf16_step(stage, bf16_recipe(base), device, data),
+                    "card, control": bf16_step(stage, bf16_recipe(base), device, data, cut=True)}
+        torch.cuda.empty_cache()
+        runs["CPU"], runs["CPU f32"] = (refs.result(j) for j in jobs)
 
-    spread = gap("CPU", "CPU f32")
-    limits = {k: BF16_GATE_FACTOR * v for k, v in spread.items()}
-    log(f"  [{tag}] the CPU's bf16-vs-f32 gap: " + ", ".join(f"{k} {v:.3e}" for k, v in spread.items())
-        + f"; limits {BF16_GATE_FACTOR:g}x")
-    out = {"cpu_bf16_vs_f32": spread, "limits": limits}
-    for name in ("card", "card, control"):
-        out[name] = got = gap(name, "CPU")
-        inside = all(got[k] <= limits[k] for k in limits)
-        log(f"  [{tag}] {name} vs CPU (bf16 recipe): " + ", ".join(
-            f"{k} {got[k]:.3e} [limit {limits[k]:.3e}]" for k in limits)
-            + f": {'inside' if inside else 'outside'}")
-        if name == "card" and not inside:
-            raise AssertionError(f"{tag}: the bf16 step disagrees between the card and the CPU")
-        if name != "card" and inside:
-            raise AssertionError(f"{tag}: the control passes the bf16 card-vs-CPU gate")
-    return out
+        def gap(a, b) -> dict:
+            """The worst term's relative gap and each gradient's relative L2."""
+            (ma, ga), (mb, gb) = runs[a], runs[b]
+            return {"term": max(abs(ma[k] - mb[k]) / max(abs(mb[k]), 1e-6) for k in mb),
+                    **{f"gradient of {p}": grad_gap(ga[p], gb[p])[0] for p in parts}}
+
+        spread = gap("CPU", "CPU f32")
+        limits = {k: BF16_GATE_FACTOR * v for k, v in spread.items()}
+        log(f"  [{tag}] the CPU's bf16-vs-f32 gap: " + ", ".join(f"{k} {v:.3e}" for k, v in spread.items())
+            + f"; limits {BF16_GATE_FACTOR:g}x")
+        out = {"cpu_bf16_vs_f32": spread, "limits": limits}
+        for name in ("card", "card, control"):
+            out[name] = got = gap(name, "CPU")
+            inside = all(got[k] <= limits[k] for k in limits)
+            log(f"  [{tag}] {name} vs CPU (bf16 recipe): " + ", ".join(
+                f"{k} {got[k]:.3e} [limit {limits[k]:.3e}]" for k in limits)
+                + f": {'inside' if inside else 'outside'}")
+            if name == "card" and not inside:
+                raise AssertionError(f"{tag}: the bf16 step disagrees between the card and the CPU")
+            if name != "card" and inside:
+                raise AssertionError(f"{tag}: the control passes the bf16 card-vs-CPU gate")
+        return out
+
+    return gate
 
 
-def run_raw_density(device) -> dict:
+def raw_density_gain(model) -> None:
+    """13c's seeded weights: the sdf head scaled by RAW_DENSITY_SDF_GAIN."""
+    with torch.no_grad():
+        model.generator.renderer.network.sigma_linear.weight.mul_(RAW_DENSITY_SDF_GAIN)
+
+
+def raw_density_f32_config():
+    """13c's raw-density flagship (with_sdf False) in f32."""
+    from e3dge_torch.config import _with, flagship_config
+
+    cfg = _with(flagship_config(), renderer=dict(with_sdf=False, field_dtype="float32"))
+    return dataclasses.replace(cfg, dtype="float32").validate()
+
+
+def raw_density_gate(refs: "CpuReferences") -> tuple:
+    """Queue 13c's raw-density CPU reference on phase 13's `CpuReferences`."""
+    return refs, refs.add("f32_image2image_cpu", raw_density_f32_config(), "raw_density_gain")
+
+
+def run_raw_density(device, cpu: tuple | None = None) -> dict:
     """13c: `image2image` of the flagship config with with_sdf False (the
     raw-density renderer, beta = 1) on seeded weights, its sdf head scaled by
     RAW_DENSITY_SDF_GAIN: in bf16 on the card one launch of each kernel entry
@@ -3312,14 +3689,10 @@ def run_raw_density(device) -> dict:
     from e3dge_torch.models.e3dge import E3DGE
     from e3dge_torch.utils.weights import init_weights
 
-    def gain(model):
-        with torch.no_grad():
-            model.generator.renderer.network.sigma_linear.weight.mul_(RAW_DENSITY_SDF_GAIN)
-
     cfg = _with(flagship_config(), renderer=dict(with_sdf=False)).validate()
     model = E3DGE(cfg)
     init_weights(model, SEED)
-    gain(model)
+    raw_density_gain(model)
     if hasattr(model.generator.renderer, "sigmoid_beta"):
         raise AssertionError("a raw-density renderer registered sigmoid_beta")
     images, ml, noise = to_device(*seeded_inputs(cfg, SEED), decoder_noise(cfg, 1, SEED), device)
@@ -3332,8 +3705,8 @@ def run_raw_density(device) -> dict:
     log(f"  [13c] raw-density image2image: median {ms:.2f} ms per inversion over 5 calls (min {lo:.2f}, max {hi:.2f})")
     del model, out
     torch.cuda.empty_cache()
-    f32 = dataclasses.replace(_with(cfg, renderer=dict(field_dtype="float32")), dtype="float32").validate()
-    f32_card_vs_cpu(f32, device, weights=gain)
+    refs, job = cpu or (None, None)
+    f32_card_vs_cpu(raw_density_f32_config(), device, weights="raw_density_gain", refs=refs, job=job)
     torch.cuda.empty_cache()
     return {"launches": counts, "ms": ms}
 
@@ -3349,37 +3722,479 @@ def beside(tag: str, bf16: dict, f32: dict | None) -> None:
     log(f"  [{tag}] f32 (this run): {fmt(f32) if f32 else 'not run in this call'}")
 
 
-def run_bf16_and_variants(device, st1_f32: dict | None = None, st2_f32: dict | None = None) -> dict:
+def bf16_gates(device, refs: "CpuReferences") -> dict:
+    """Phase 13's card-vs-CPU gates with their batches made on the card and
+    their CPU references queued on `refs` (main queues them on phase 7's
+    child, which runs them beside phases 7 to 10): 13a's and 13b's reduced
+    bf16 steps, 13c's bn step and its raw-density image2image."""
+    return {"1": bf16_card_vs_cpu(device, "1", refs), "2": bf16_card_vs_cpu(device, "2", refs),
+            "bn": st2_card_vs_cpu(device, bn_netlocal(st2_reduced_config()), field_gap=True, refs=refs),
+            "raw": raw_density_gate(refs)}
+
+
+def run_bf16_and_variants(device, st1_f32: dict | None = None, st2_f32: dict | None = None,
+                          gates: dict | None = None) -> dict:
     """Phase 13: a. stage 1 at the bf16 recipe (`run_stage1` of
     bf16_recipe(stage1_config)), its loss against f32 on one batch, its
     reduced step card vs CPU; b. stage 2.2 the same (`run_stage2`); each
     beside phase 7's / 8's f32 figures when given; c. one stage-2.2 iteration
     with the bn netLocal (its BN statistics move, phase 8's launches) and
     its reduced cycle loss card vs CPU (phase 8's gate and control), the
-    raw-density image2image. Returns the launches, shapes and figures."""
+    raw-density image2image. `gates`: `bf16_gates` made earlier, else made
+    here with a child of their own. Returns the launches, shapes and
+    figures."""
     from e3dge_torch.config import stage1_config, stage2_config
 
     t_phase = time.perf_counter()
     with torch.no_grad():
         shapes = bf16_kernel_check(device)
+    if gates is None:  # the reduced gates' CPU references start first and run beside 13a-c
+        refs = CpuReferences("13")
+        gates = bf16_gates(device, refs)
+        refs.start()
     log("  [13a] stage 1, bf16 recipe, stage1_config at full width")
     st1 = run_stage1(device, bf16_recipe(stage1_config()), tag="13a")
     beside("13a stage-1 step", st1["figures"], st1_f32 and st1_f32["figures"])
     loss1 = bf16_vs_f32_loss(device, "1")
-    gate1 = bf16_card_vs_cpu(device, "1")
+    gate1 = gates["1"]()
     log("  [13b] stage 2.2, bf16 recipe, stage2_config at full width")
     st2 = run_stage2(device, bf16_recipe(stage2_config()), tag="13b")
     beside("13b stage-2.2 iteration", st2["figures"], st2_f32 and st2_f32["figures"])
     loss2 = bf16_vs_f32_loss(device, "2")
-    gate2 = bf16_card_vs_cpu(device, "2")
+    gate2 = gates["2"]()
     log("  [13c] the bn netLocal: one stage-2.2 iteration at stage2_config, phase 8's recipe")
     bn = run_stage2(device, bn_netlocal(stage2_config()), tag="13c", warmup=0, iters=1, profile=False)
-    st2_card_vs_cpu(device, bn_netlocal(st2_reduced_config()), field_gap=True)
+    gates["bn"]()
     log("  [13c] the raw-density renderer: flagship image2image")
-    raw = run_raw_density(device)
+    raw = run_raw_density(device, gates["raw"])
     log(f"  phase 13: {time.perf_counter() - t_phase:.1f} s")
     return {"shapes": shapes, "stage1": st1, "stage2": st2, "bn": bn, "raw": raw,
             "gates": {"13a": {"loss": loss1, **gate1}, "13b": {"loss": loss2, **gate2}}}
+
+
+# Phase 14: the long tail (the modules only the JAX tests reach) on the card,
+# each card-vs-CPU gate taking its gap by magnitude (`mag_gap`, run_gap's
+# rule) against a limit 10x the matching CPU test's tolerance, each with a
+# control that must fail it. The secant search through query_sdf is the
+# field kernel's path here: one launch at B x H*W*24 points, then 8 at B x H*W
+LT_SECANT_COARSE, LT_SECANT_STEPS = 24, 8
+LT_SECANT_LAUNCHES = {"siren_field_full": 1 + LT_SECANT_STEPS, "siren_field_tex": 0}
+# tests/test_torch_geometry_extras.py: the secant's z 1e-4, forward_ddf 1e-5,
+# mlp_init_pass's gradient 1e-4 of its scale; test_torch_encoder_variants.py
+# and test_torch_align_extras.py: 1e-4 of scale; x10
+LT_TOL = {"secant z": 1e-3, "forward_ddf": 1e-4, "mlp_init loss": 1e-3, "mlp_init gradient": 1e-3,
+          "encoder codes": 1e-3, "align outputs": 1e-3}
+# a coarse sample within this of the level can pick another bracket (the
+# kernel's sdf within KERNEL_TOLERANCE's 1e-4 of the plain field's)
+LT_AMBIGUOUS = 1e-4
+# calc_losses' scores card vs CPU: EVAL_TOL's (phase 9) per metric; the
+# perceptual modes 10x the CPU test's 1e-4 of scale
+LT_CALC_TOL = {"l2": EVAL_TOL["loss_l2"], "mae_ref": EVAL_TOL["mae"], "ssim": EVAL_TOL["ssim"],
+               "ssim_ref": EVAL_TOL["ssim"], "psnr": EVAL_TOL["psnr"], "lpips": 1e-3, "id": 1e-3}
+LT_GALLERY = (2, 8, 64)  # images, views, frame size
+
+
+def mag_gap(got, want) -> float:
+    """max |got - want| over max |want| (run_gap's rule: a gap by magnitude)."""
+    got, want = (torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x).double().cpu() for x in (got, want))
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def lt_renderer(cfg, dev):
+    """(the renderer of cfg on dev with seeded weights, a camera at azimuth
+    0.1 and elevation 0.05 at cfg's resolution, seeded styles [1, D+1, 256])."""
+    from e3dge_torch.models.volume_renderer import VolumeFeatureRenderer
+    from e3dge_torch.render.camera import camera_params_from_angles
+    from e3dge_torch.utils.weights import init_weights
+
+    r = VolumeFeatureRenderer(cfg).to(dev)
+    init_weights(r, SEED)
+    cam = camera_params_from_angles(torch.tensor([0.1], device=dev), torch.tensor([0.05], device=dev), cfg.out_im_res)
+    styles = torch.from_numpy((0.3 * np.random.RandomState(SEED + 14).randn(1, cfg.depth + 1, cfg.style_dim))
+                              .astype(np.float32)).to(dev)
+    return r, cam, styles
+
+
+def twin_sdf(renderer, styles):
+    """The eager twin's SDF at world points [B, ..., 3] (the renderer's
+    warp, backbone and sdf head; no kernel on any device)."""
+    net = renderer.network
+
+    def fn(p):
+        q = (p * (1.0 / renderer.camera_dist_radius)).reshape(p.shape[0], -1, 3)
+        return net.geo_head(net.backbone(q, styles)).reshape(*p.shape[:-1], 1)
+
+    return fn
+
+
+def lt_secant_level(dev) -> float:
+    """14a's SDF level: the 5th percentile of the twin's coarse samples over
+    the flagship renderer's rays (about half the rays hit)."""
+    return lt_secant(dev, "twin", None, steps=0)["level"]
+
+
+def lt_secant(dev, route: str = "kernel", level: float | None = None, steps: int = LT_SECANT_STEPS) -> dict:
+    """14a: `find_surface_secant` over the flagship renderer's 64^2 rays (B=1,
+    LT_SECANT_COARSE + steps samples) at the SDF `level` with sdf_fn its
+    query_sdf (route "kernel": the field kernel on the card, "plain": the
+    kernel's plain version in its place) or the eager twin ("twin", the CPU
+    reference), without grad. level None: `lt_secant_level`'s. Returns z,
+    hit, the coarse samples' distance to the level, the level and the
+    launches."""
+    from unittest import mock
+
+    from e3dge_torch.config import flagship_config
+    from e3dge_torch.models import volume_renderer
+    from e3dge_torch.ops import siren_field as sf
+    from e3dge_torch.render.rays import find_surface_secant, get_rays
+
+    dev = torch.device(dev)
+    cfg = flagship_config().renderer
+    r, cam, styles = lt_renderer(cfg, dev)
+    rays_o, rays_d, _ = get_rays(cam.focal, cam.poses, cfg.out_im_res)
+    near, far = cam.near.reshape(1, 1, 1), cam.far.reshape(1, 1, 1)
+    t = torch.linspace(0.0, 1.0, LT_SECANT_COARSE, device=dev)
+    z = near[..., None] * (1 - t) + far[..., None] * t
+    fn = twin_sdf(r, styles) if route == "twin" else (lambda p: r.query_sdf(p, styles))
+    with torch.no_grad():
+        coarse = twin_sdf(r, styles)(rays_o[..., None, :] + rays_d[..., None, :] * z[..., None])[..., 0]
+        if level is None:
+            level = float(torch.quantile(coarse.flatten().cpu(), 0.05))
+        with mock.patch.object(volume_renderer, "siren_field_full", sf.siren_field_reference) if route == "plain" \
+                else contextlib.nullcontext():
+            (zs, hit), counts = counted(lambda: find_surface_secant(fn, rays_o, rays_d, near, far, LT_SECANT_COARSE,
+                                                                    steps, level)) \
+                if dev.type == "cuda" else ((find_surface_secant(fn, rays_o, rays_d, near, far, LT_SECANT_COARSE,
+                                                                 steps, level)), {})
+    return {"z": zs.cpu(), "hit": hit.cpu(), "near_level": (coarse - level).abs().amin(-1).cpu(), "level": level,
+            "launches": counts}
+
+
+def lt_mlp_init(dev, offset_sampling: bool | None = None) -> dict:
+    """14a: `mlp_init_pass` of stage1_config's renderer (B=1, its 64^2 x 18
+    samples) with grad on the twin, from a seeded jitter draw: the loss
+    mean((sdf - target)^2) and its gradient on the field's parameters.
+    offset_sampling overrides the config's grid (the control)."""
+    from e3dge_torch.config import stage1_config
+
+    dev = torch.device(dev)
+    cfg = stage1_config().renderer
+    if offset_sampling is not None:
+        cfg = dataclasses.replace(cfg, offset_sampling=offset_sampling)
+    r, cam, styles = lt_renderer(cfg, dev)
+    t_rand = torch.from_numpy(np.random.RandomState(SEED + 15).uniform(
+        size=(1, cfg.out_im_res, cfg.out_im_res, cfg.n_samples)).astype(np.float32)).to(dev)
+    sdf, target = r.mlp_init_pass(cam, styles, t_rand=t_rand)
+    loss = torch.mean((sdf - target) ** 2)
+    loss.backward()
+    return {"loss": float(loss.detach()), "grad": {k: (torch.zeros_like(p) if p.grad is None else p.grad).detach().cpu()
+                                          for k, p in r.network.named_parameters()}}
+
+
+def lt_forward_ddf(dev, roll_styles: bool = False) -> dict:
+    """14a: `SirenGenerator.forward_ddf` at 8 x 256 (the eager twin on every
+    device) on 4,096 seeded points, feat_layer 2 with multi_layer (layers
+    2..7 and the view features). roll_styles shifts the W+ rows by one (the
+    control)."""
+    from e3dge_torch.models.siren import SirenGenerator
+    from e3dge_torch.utils.weights import init_weights
+
+    dev = torch.device(dev)
+    net = SirenGenerator(8, 256, 256).to(dev)
+    init_weights(net, SEED)
+    rng = np.random.RandomState(SEED + 16)
+    pts = torch.from_numpy(rng.uniform(-1, 1, (1, 4096, 3)).astype(np.float32)).to(dev)
+    views = torch.nn.functional.normalize(torch.from_numpy(rng.randn(1, 4096, 3).astype(np.float32)), dim=-1).to(dev)
+    styles = torch.from_numpy((0.3 * rng.randn(1, 9, 256)).astype(np.float32)).to(dev)
+    if roll_styles:
+        styles = styles.roll(1, dims=1)
+    with torch.no_grad():
+        out = net.forward_ddf(pts, views, styles, feat_layer=2, multi_layer=True)
+    return {k: v.cpu() for k, v in out.items()}
+
+
+def lt_encoder_inputs(name: str) -> tuple:
+    """14b's input of `set_encoder(name)` at the flagship's EncoderConfig, B=1:
+    256^2 for the IR-SE-50 family and the D-backbone encoders (FullEncoder
+    pools its own 64^2 thumb), 64^2 thumbs for the volume-D encoders."""
+    res = 64 if name in ("VolumeRenderDiscriminatorEncoder", "VolumeStyleEncoder") else 256
+    return (torch.from_numpy(np.random.RandomState(SEED + 17).uniform(-1, 1, (1, 3, res, res)).astype(np.float32)),)
+
+
+def lt_encoder(name: str, dev, stage: int | None = None) -> list:
+    """14b: `set_encoder(name, flagship EncoderConfig)` with seeded weights in
+    eval mode on dev: its [renderer, decoder] W+ codes (None where it has
+    none) on the CPU. stage is e4e's per-call progressive stage."""
+    from e3dge_torch.config import flagship_config
+    from e3dge_torch.models.encoders.factory import set_encoder
+    from e3dge_torch.utils.weights import init_weights
+
+    dev = torch.device(dev)
+    kw = {"VolumeRenderDiscriminatorEncoder": dict(init_size=64), "VolumeStyleEncoder": dict(init_size=64)}.get(
+        name, dict(input_size=256, channel_multiplier=2) if name in ("StyleGANEncoder", "DEncoder", "FullEncoder")
+        else {})
+    enc = set_encoder(name, flagship_config().encoder, **kw)
+    init_weights(enc, SEED)
+    enc = enc.to(dev).eval()
+    with torch.no_grad():
+        out = enc(*(x.to(dev) for x in lt_encoder_inputs(name)), **({} if stage is None else {"stage": stage}))
+    return [None if o is None else o.float().cpu() for o in out]
+
+
+def lt_encoders(dev) -> dict:
+    """14b's every `set_encoder` name, on dev (the CPU reference's job)."""
+    from e3dge_torch.models.encoders.factory import ENCODERS
+
+    return {name: lt_encoder(name, dev) for name in ENCODERS}
+
+
+def lt_align(dev) -> dict:
+    """14c: the align ablation blocks at their constructor widths on maps of
+    the flagship E1's sizes, seeded weights, eval mode: ResidualEncoder
+    (512 x 64^2 conditions) on a 256^2 residual, FeatureAligner on 256^2
+    residual, depth, thumb and hourglass-width (256) ref features; the
+    conv blocks at the hourglass width on 64^2 feature maps. Returns each
+    block's outputs on the CPU, and the DemodulatedConv2d's convolution
+    without its demodulation (the control) under "DemodulatedConv2d, plain"."""
+    from e3dge_torch.config import flagship_config
+    from e3dge_torch.models import align
+    from e3dge_torch.utils.weights import init_weights
+
+    dev = torch.device(dev)
+    c = flagship_config().pifu.hourglass_dim
+    rng = np.random.RandomState(SEED + 18)
+
+    def x(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev)
+
+    res, depth, thumb, ref = x(1, 3, 256, 256), x(1, 1, 256, 256), x(1, 3, 256, 256), x(1, c, 256, 256)
+    f1, f2, mask = x(1, c, 64, 64), x(1, c, 64, 64), torch.sigmoid(x(1, 1, 64, 64))
+    cases = {
+        "ResidualEncoder": (align.ResidualEncoder(), (res,), {}),
+        "FeatureAligner": (align.FeatureAligner(ref_feats_dim=c), (res, depth, ref, thumb), {}),
+        "DemodulatedConv2d": (align.DemodulatedConv2d(c, c, 3, padding=1), (f1,), {}),
+        "ConvResBlock": (align.ConvResBlock(c, c), (f1,), {}),
+        "FuseSftBlock": (align.FuseSftBlock(2 * c, c), (f1, f2), {"w": 0.5}),
+        "ResidualConvBlock": (align.ResidualConvBlock(c, c), (f1,), {}),
+        "AlignInpainterFusionBlock": (align.AlignInpainterFusionBlock(c), (f1, f2, mask), {}),
+    }
+    out = {}
+    for name, (block, args, kw) in cases.items():
+        init_weights(block, SEED)
+        with torch.no_grad():
+            got = block.to(dev).eval()(*args, **kw)
+        out[name] = [t.cpu() for t in (got if isinstance(got, tuple) else (got,))]
+        if name == "DemodulatedConv2d":
+            with torch.no_grad():
+                out["DemodulatedConv2d, plain"] = [torch.nn.functional.conv2d(f1, block.weight[0], padding=1).cpu()]
+    return out
+
+
+def lt_calc_losses(dev, res_dir: str, gt_dir: str, out: str) -> dict:
+    """14d: `python -m e3dge_torch.tools.calc_losses` in every mode on dev
+    (seeded perceptual nets): {mode: {image: score}}."""
+    from e3dge_torch.tools import calc_losses
+
+    scores = {}
+    for mode in calc_losses.MODES:
+        argv = ["--mode", mode, "--data-path", res_dir, "--gt-path", gt_dir, "--out", out, "--device", str(dev)]
+        if calc_losses.main(argv) != 0:
+            raise AssertionError(f"calc_losses --mode {mode} failed")
+        scores[mode] = json.load(open(os.path.join(out, f"scores_{mode}.json")))
+    return scores
+
+
+def lt_gate(label: str, gap: float, limit: float, control: float | None = None) -> None:
+    """The card within `limit` of the CPU, and the control (if given)
+    outside it; logged."""
+    ok = gap <= limit and math.isfinite(gap)
+    text = f"  [{label}] card vs CPU: {gap:.3e} [limit {limit:g}] {'ok' if ok else 'FAIL'}"
+    if control is not None:
+        text += f"; control {control:.3e}: {'outside' if control > limit else 'INSIDE'}"
+    log(text)
+    if not ok:
+        raise AssertionError(f"{label}: the card disagrees with the CPU")
+    if control is not None and not control > limit:
+        raise AssertionError(f"{label}: the control passes the gate")
+
+
+def secant_gap(got: dict, want: dict) -> tuple[float, int, int]:
+    """(z's gap by magnitude on the rays both hit with no coarse sample
+    within LT_AMBIGUOUS of the level, the rays whose hit differs with no such
+    sample, the rays compared)."""
+    clear = (got["near_level"] > LT_AMBIGUOUS) & (want["near_level"] > LT_AMBIGUOUS)
+    both = got["hit"] & want["hit"] & clear
+    differ = int(((got["hit"] != want["hit"]) & clear).sum())
+    return mag_gap(got["z"][both], want["z"][both]), differ, int(both.sum())
+
+
+def long_tail_card(device, root: str) -> dict:
+    """Phase 14: the modules of `e3dge_tpu/` that only the JAX tests reach,
+    on the card at full width, TF32 off, f32; each against the CPU (the
+    jobs of one `CpuReferences` child, started once the secant's level is
+    known and read after all of the card's work) by `mag_gap`:
+    a. `find_surface_secant` through the flagship renderer's query_sdf (the
+    field kernel: LT_SECANT_LAUNCHES per call, its new launch shapes checked
+    and timed), z and hit against the CPU's twin and the card's plain field,
+    a control at 0 secant steps; `mlp_init_pass` at stage1_config with grad
+    (loss, field gradient; control: the stratified grid); `forward_ddf` at
+    8 x 256 (control: W+ rows shifted); b. every `set_encoder` name at the
+    flagship EncoderConfig (control: e4e at stage 0); c. the align blocks
+    (control: DemodulatedConv2d without demodulation); d. `calc_losses` in
+    every mode on 5 seeded 256^2 pairs (control: two ground truths swapped)
+    and `gallery_video` written and read back (control: no --bounce, half
+    the frames). This part starts the CPU references and runs the card's
+    side; `long_tail_gates` reads the references and holds each gate (main
+    runs phase 13 between them, beside the references)."""
+    from e3dge_torch.config import flagship_config
+    from e3dge_torch.models.encoders.factory import ENCODERS
+    from e3dge_torch.tools import calc_losses, gallery_video
+
+    t_phase = time.perf_counter()
+    folders = {k: write_folder(os.path.join(root, k), smooth_images(5, 256, SEED + 19 + i))
+               for i, k in enumerate(("results", "gt"))}
+    swapped = os.path.join(root, "gt_swapped")
+    shutil.copytree(folders["gt"], swapped)
+    os.replace(os.path.join(swapped, "0.png"), os.path.join(swapped, "tmp.png"))
+    os.replace(os.path.join(swapped, "1.png"), os.path.join(swapped, "0.png"))
+    os.replace(os.path.join(swapped, "tmp.png"), os.path.join(swapped, "1.png"))
+    card = {}
+    with tf32_off():
+        level = lt_secant_level(device)
+        refs = CpuReferences("14")
+        jobs = {"secant": refs.add("lt_secant", "cpu", "twin", level), "mlp_init": refs.add("lt_mlp_init", "cpu"),
+                "forward_ddf": refs.add("lt_forward_ddf", "cpu"), "encoders": refs.add("lt_encoders", "cpu"),
+                "align": refs.add("lt_align", "cpu"),
+                "calc_losses": refs.add("lt_calc_losses", "cpu", folders["results"], folders["gt"],
+                                        os.path.join(root, "scores_cpu"))}
+        refs.start()
+        # a. the secant's launch shapes, then every card run of the phase
+        res, n_coarse = flagship_config().renderer.out_im_res, LT_SECANT_COARSE
+        shapes = {}
+        for label, n in (("14a secant coarse samples", res * res * n_coarse), ("14a secant step", res * res)):
+            shapes[label] = check_and_time_full(label, 1, n, False, "highest", device, sdf_only=True)
+            shapes[label].update(entry="siren_field_full", precision="highest", batch=1, n=n, sdf_only=True)
+        card["secant"] = {route: lt_secant(device, route, level) for route in ("kernel", "plain")}
+        card["secant"]["control"] = lt_secant(device, "kernel", level, steps=0)
+        if card["secant"]["kernel"]["launches"] != LT_SECANT_LAUNCHES:
+            raise AssertionError(f"14a: the secant launched {card['secant']['kernel']['launches']}, expected "
+                                 f"{LT_SECANT_LAUNCHES}")
+        card["mlp_init"] = {"run": lt_mlp_init(device), "control": lt_mlp_init(device, offset_sampling=False)}
+        card["forward_ddf"] = {"run": lt_forward_ddf(device), "control": lt_forward_ddf(device, roll_styles=True)}
+        card["encoders"] = {name: lt_encoder(name, device) for name in ENCODERS}
+        card["e4e stage 0"] = lt_encoder("Encoder4Editing", device, stage=0)
+        torch.cuda.empty_cache()
+        card["align"] = lt_align(device)
+    card["calc_losses"] = lt_calc_losses(device, folders["results"], folders["gt"], os.path.join(root, "scores_card"))
+    calc_losses.main(["--mode", "l2", "--data-path", folders["results"], "--gt-path", swapped, "--out",
+                      os.path.join(root, "scores_swapped"), "--device", "cuda"])
+    card["calc_losses control"] = json.load(open(os.path.join(root, "scores_swapped", "scores_l2.json")))
+    b, v, size = LT_GALLERY
+    frames = np.stack([np.stack([smooth_images(1, size, SEED + 30 + 10 * i + j)[0].transpose(2, 0, 1)
+                                 for j in range(v)]) for i in range(b)]).astype(np.float32) / 127.5 - 1.0
+    np.save(os.path.join(root, "frames.npy"), frames)
+    videos = {}
+    for name, extra in (("bounce", ["--bounce"]), ("control, no --bounce", [])):
+        out = os.path.join(root, f"gallery_{len(videos)}.mp4")
+        gallery_video.main(["--frames", os.path.join(root, "frames.npy"), "--cols", "2", "--fps", "8", "--out", out,
+                            *extra])
+        videos[name] = read_video(out)
+    log(f"  [14] the card's runs: {time.perf_counter() - t_phase:.1f} s")
+    return {"card": card, "refs": refs, "jobs": jobs, "level": level, "shapes": shapes, "videos": videos,
+            "t": time.perf_counter() - t_phase}
+
+
+def long_tail_gates(state: dict) -> dict:
+    """Phase 14's gates: each of `long_tail_card`'s card results against its
+    CPU reference (`run_long_tail`). Returns the launches and the shapes."""
+    t_phase = time.perf_counter()
+    card, refs, jobs, level = state["card"], state["refs"], state["jobs"], state["level"]
+    b, v, size = LT_GALLERY
+
+    # the gates, each against its CPU reference
+    cpu, sec = refs.result(jobs["secant"]), card["secant"]
+    gap, differ, n = secant_gap(sec["kernel"], cpu)
+    log(f"  [14a] secant at level {level:.4e} (the card's twin's coarse 5th percentile): {int(cpu['hit'].sum())} of "
+        f"{cpu['hit'].numel()} rays hit on the CPU, {int(sec['kernel']['hit'].sum())} on the card; {n} compared, "
+        f"{int((cpu['near_level'] <= LT_AMBIGUOUS).sum())} with a coarse sample within {LT_AMBIGUOUS:g} of the "
+        f"level left out; launches {sec['kernel']['launches']}")
+    g_plain, d_plain, _ = secant_gap(sec["kernel"], sec["plain"])
+    log(f"  [14a] card (kernel) vs the card's plain field: z {g_plain:.3e}, hits differing {d_plain}")
+    if differ or d_plain or not n:
+        raise AssertionError(f"14a: hit masks differ on {differ} / {d_plain} rays with no ambiguous sample")
+    lt_gate("14a secant z", max(gap, g_plain), LT_TOL["secant z"], secant_gap(sec["control"], cpu)[0])
+    want, got = refs.result(jobs["mlp_init"]), card["mlp_init"]
+
+    def grad_of(run):
+        return torch.cat([g.flatten() for g in run["grad"].values()])
+
+    lt_gate("14a mlp_init_pass loss", mag_gap(got["run"]["loss"], want["loss"]), LT_TOL["mlp_init loss"],
+            mag_gap(got["control"]["loss"], want["loss"]))
+    lt_gate("14a mlp_init_pass field gradient", mag_gap(grad_of(got["run"]), grad_of(want)),
+            LT_TOL["mlp_init gradient"], mag_gap(grad_of(got["control"]), grad_of(want)))
+    want, got = refs.result(jobs["forward_ddf"]), card["forward_ddf"]
+    lt_gate("14a forward_ddf", max(mag_gap(got["run"][k], want[k]) for k in want), LT_TOL["forward_ddf"],
+            max(mag_gap(got["control"][k], want[k]) for k in want))
+    want = refs.result(jobs["encoders"])
+    gaps = {}
+    for name, ref in want.items():
+        out = card["encoders"][name]
+        if any((o is None) != (r is None) for o, r in zip(out, ref)):
+            raise AssertionError(f"14b {name}: the card's codes and the CPU's differ in kind")
+        gaps[name] = max(mag_gap(o, r) for o, r in zip(out, ref) if r is not None)
+    log("  [14b] W+ codes card vs CPU: " + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items()))
+    lt_gate("14b encoders", max(gaps.values()), LT_TOL["encoder codes"],
+            max(mag_gap(o, r) for o, r in zip(card["e4e stage 0"], want["Encoder4Editing"])))
+    want, got = refs.result(jobs["align"]), card["align"]
+    want.pop("DemodulatedConv2d, plain")
+    control = mag_gap(got.pop("DemodulatedConv2d, plain")[0], want["DemodulatedConv2d"][0])
+    gaps = {k: max(mag_gap(o, r) for o, r in zip(got[k], want[k])) for k in want}
+    log("  [14c] outputs card vs CPU: " + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items()))
+    lt_gate("14c align blocks", max(gaps.values()), LT_TOL["align outputs"], control)
+    want, got = refs.result(jobs["calc_losses"]), card["calc_losses"]
+    worst = {m: max(abs(got[m][k] - want[m][k]) for k in want[m]) for m in want}
+    log("  [14d] calc_losses card vs CPU, largest gap per mode: "
+        + ", ".join(f"{m} {v:.2e} [tol {LT_CALC_TOL[m]:g}]" for m, v in worst.items()))
+    if any(not worst[m] <= LT_CALC_TOL[m] for m in worst):
+        raise AssertionError("14d: calc_losses disagrees between the card and the CPU")
+    control = max(abs(card["calc_losses control"][k] - want["l2"][k]) for k in want["l2"])
+    lt_gate("14d calc_losses l2", worst["l2"], LT_CALC_TOL["l2"], control)
+    n, shape = state["videos"]["bounce"]
+    want_n, want_shape = 2 * v, (size, 2 * size, 3)
+    log(f"  [14d] gallery video: {n} frames of {shape} read back [want {want_n} of {want_shape}]; control "
+        f"{state['videos']['control, no --bounce'][0]} frames")
+    if (n, shape) != (want_n, want_shape) or state["videos"]["control, no --bounce"][0] == want_n:
+        raise AssertionError("14d: the gallery video does not read back as written, or its control passes")
+    log(f"  phase 14: {state['t'] + time.perf_counter() - t_phase:.1f} s (card {state['t']:.1f} s, gates "
+        f"{time.perf_counter() - t_phase:.1f} s)")
+    return {"shapes": state["shapes"],
+            "launches": {"long_tail_secant": sec["kernel"]["launches"]["siren_field_full"]}}
+
+
+def run_long_tail(device, root: str) -> dict:
+    """Phase 14 in one piece: `long_tail_card`, then `long_tail_gates`."""
+    return long_tail_gates(long_tail_card(device, root))
+
+
+def read_video(path: str) -> tuple[int, tuple]:
+    """(frames, the first frame's shape) of a video `write_video` wrote (an
+    .mp4 by OpenCV, else a .gif by Pillow)."""
+    if not os.path.exists(path):
+        from PIL import Image
+
+        im = Image.open(os.path.splitext(path)[0] + ".gif")
+        return im.n_frames, np.asarray(im.convert("RGB")).shape
+    import cv2
+
+    cap = cv2.VideoCapture(path)
+    n, shape = 0, None
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        n, shape = n + 1, shape or frame.shape
+    cap.release()
+    return n, shape
 
 
 def main() -> int:
@@ -3391,6 +4206,7 @@ def main() -> int:
 
     device = torch.device("cuda")
     t_start = time.perf_counter()
+    phase("1-3")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     log(f"[1] card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -3414,58 +4230,96 @@ def main() -> int:
     with torch.no_grad():
         check_path_shapes(device)
 
+    phase("4")
     log(f"[4] image2image, flagship config on seeded weights (at {time.perf_counter() - t_start:.1f} s)")
     counts, inv_ms, bf16_img, flagship = run_flagship(device)
 
+    phase("5")
     log(f"[5] f32 image2image, card vs CPU; bf16 vs f32 (at {time.perf_counter() - t_start:.1f} s)")
-    f32_card, f32_img = run_card_vs_cpu(device, bf16_img)
+    f32_card, f32_img, f32_gate = run_card_vs_cpu(device, bf16_img)
 
+    phase("6")
     log(f"[6] the other inference paths, flagship config (at {time.perf_counter() - t_start:.1f} s)")
     with torch.no_grad():
         paths = run_paths(device, flagship, f32_card, f32_img, bf16_img)
     paths["image2image"] = counts
     del flagship, f32_card
     torch.cuda.empty_cache()
+    phase("5")
+    log(f"[5] f32 image2image, card vs CPU: the CPU reference that ran beside phase 6 (at "
+        f"{time.perf_counter() - t_start:.1f} s)")
+    f32_gate()
 
+    phase("7")
     log(f"[7] stage-1 training, stage1_config at full width (at {time.perf_counter() - t_start:.1f} s)")
-    st1 = run_stage1(device)
-    st1_card_vs_cpu(device)
-
-    log(f"[8] stage-2.2 training, stage2_config at full width (at {time.perf_counter() - t_start:.1f} s)")
-    st2 = run_stage2(device)
-    st2_card_vs_cpu(device)
-
-    log(f"[9] the eval entry point, demo_view_synthesis_config at full width (at {time.perf_counter() - t_start:.1f} s)")
     with tempfile.TemporaryDirectory(prefix="e3dge_eval_") as root:
+        # the CPU references of phases 7, 8, 9 and 13 in one child, in the order their gates read
+        # them: it runs beside phases 7 to 10 (13's rank phases 11 and 12 are CPU-bound)
+        refs = CpuReferences("7-13")
+        st1_gate = st1_card_vs_cpu(device, refs)
+        st2_gate = st2_card_vs_cpu(device, refs=refs)
+        ev_gate = eval_card_vs_cpu(device, root, refs)
+        p13_gates = bf16_gates(device, refs)
+        refs.start()
+        st1 = run_stage1(device)
+        st1_gate()
+
+        phase("8")
+        log(f"[8] stage-2.2 training, stage2_config at full width (at {time.perf_counter() - t_start:.1f} s)")
+        st2 = run_stage2(device)
+        st2_gate()
+
+        phase("9")
+        log(f"[9] the eval entry point, demo_view_synthesis_config at full width (at "
+            f"{time.perf_counter() - t_start:.1f} s)")
         ev_kernel = eval_kernel_check(device)
         ev = run_eval(device, root)
-        eval_card_vs_cpu(device, root)
+        ev_gate()
         ev.update(run_host_videos(device, root))
     ev_shapes = [{"label": label, **r} for label, r in ev_kernel.items()]
 
+    phase("10")
     log(f"[10] the trainer CLI with its services, --resume, and the NoW 3D eval (at {time.perf_counter() - t_start:.1f} s)")
     with tempfile.TemporaryDirectory(prefix="e3dge_train_") as root:
         log(f"  {shutil.disk_usage(root).free / 2**30:.1f} GiB free under {root} (the checkpoints take ~6 GiB)")
-        tr = run_trainer(device, root, st2["ms"])
-        run_resume(device, root)
+        # 10c first: its CPU reference runs beside 10a's and 10b's card work
         ev_shapes += [{"label": label, **r} for label, r in now_kernel_check(device).items()]
-        now = run_now(device, root)
+        now, now_gate = run_now(device, root)
+        tr = run_trainer(device, root, st2["ms"])
+        rank_ref = run_resume(device, root)
+        log(f"[10c] now_scan_error, card vs CPU: the CPU reference that ran beside 10a and 10b (at "
+            f"{time.perf_counter() - t_start:.1f} s)")
+        now_gate()
 
+        phase("11")
         log(f"[11] data parallelism across ranks on the one card (at {time.perf_counter() - t_start:.1f} s)")
-        rank_ref = rank_reference(root)
         dp = run_dp(device, root, rank_ref)
 
+        phase("12")
         log(f"[12] the sp (ray) axis: ray-split cycle steps on 1x2 and 2x2 worlds on the one card (at "
             f"{time.perf_counter() - t_start:.1f} s)")
         spr = run_sp(device, root, rank_ref)
+        shutil.rmtree(rank_ref["work"])
     ev_shapes += [{"label": label, **r} for label, r in dp["shapes"].items()]
     ev_shapes += [{"label": label, **r} for label, r in spr["shapes"].items()]
     dp["launches"].update(spr["launches"])
 
-    log(f"[13] the stage scripts' bf16 recipe and the config-selected variants (at "
-        f"{time.perf_counter() - t_start:.1f} s)")
-    p13 = run_bf16_and_variants(device, st1, st2)
-    ev_shapes += [{"label": label, **r} for label, r in p13["shapes"].items()]
+    with tempfile.TemporaryDirectory(prefix="e3dge_long_tail_") as lt_root:
+        phase("14")
+        log(f"[14] the long tail: geometry extras, encoder variants, align blocks, offline tools; the card's "
+            f"runs, whose CPU references run beside phase 13 (at {time.perf_counter() - t_start:.1f} s)")
+        lt_state = long_tail_card(device, lt_root)
+
+        phase("13")
+        log(f"[13] the stage scripts' bf16 recipe and the config-selected variants (at "
+            f"{time.perf_counter() - t_start:.1f} s)")
+        p13 = run_bf16_and_variants(device, st1, st2, p13_gates)
+        ev_shapes += [{"label": label, **r} for label, r in p13["shapes"].items()]
+
+        phase("14")
+        log(f"[14] the long tail's gates (at {time.perf_counter() - t_start:.1f} s)")
+        p14 = long_tail_gates(lt_state)
+    ev_shapes += [{"label": label, **r} for label, r in p14["shapes"].items()]
 
     def p13_launches(entry, precision):
         """Phase 13's launches of one entry in one precision, per step or
@@ -3534,7 +4388,8 @@ def main() -> int:
                              **eval_launches("siren_field_full", "highest"),
                              **trainer_launches("siren_field_full", "highest"),
                              **dp_launches("siren_field_full", "highest"),
-                             **p13_launches("siren_field_full", "highest")},
+                             **p13_launches("siren_field_full", "highest"),
+                             **p14["launches"]},
         "launches_stage2": st2["launches"]["siren_field_full"],
     })
     # the texture entry in f32, on the stage-2 path (the D's fake producer):
@@ -3554,9 +4409,11 @@ def main() -> int:
                              **eval_launches("siren_field_tex", "highest"),
                              **trainer_launches("siren_field_tex", "highest"),
                              **dp_launches("siren_field_tex", "highest"),
-                             **p13_launches("siren_field_tex", "highest")},
+                             **p13_launches("siren_field_tex", "highest"),
+                             "long_tail_secant": 0},
     })
     log(f"image2image ms per inversion (flagship bf16, B=1): {inv_ms:.4f}; all phases {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps(wall_table()))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3566,9 +4423,10 @@ def main() -> int:
 
 def phase_only(phase: str) -> int:
     """Phases 1 and 2, the one-rank reference of 11b and 12
-    (`rank_reference`) and phase 11 or 12 alone, or phases 1, 2 and 13, for
-    iterating on it: `python3 chip_smoke.py --phase 11` (or 12, or 13; 13
-    without phases 7 and 8, so without their f32 figures beside its own)."""
+    (`rank_reference`) and phase 11 or 12 alone, or phases 1, 2 and 13 or
+    14, for iterating on it: `python3 chip_smoke.py --phase 11` (or 12, 13,
+    14; 13 without phases 7 and 8, so without their f32 figures beside its
+    own)."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -3582,6 +4440,13 @@ def phase_only(phase: str) -> int:
     sf.build_library()
     # TF32 off, as phase 3 leaves it for the phases after it
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    if phase == "14":
+        log("[14] phase 14 alone")
+        with tempfile.TemporaryDirectory(prefix="e3dge_long_tail_") as root:
+            out = run_long_tail(device, root)
+        print(json.dumps({"phase14": out}))
+        print(smi)
+        return 0
     if phase == "13":
         log("[13] phase 13 alone")
         out = run_bf16_and_variants(device)
@@ -3607,6 +4472,11 @@ def phase_only(phase: str) -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--rank-child":
         sys.exit(rank_child(sys.argv[2]))
-    if len(sys.argv) == 3 and sys.argv[1] == "--phase" and sys.argv[2] in ("11", "12", "13"):
-        sys.exit(phase_only(sys.argv[2]))
-    sys.exit(main())
+    if len(sys.argv) == 3 and sys.argv[1] == "--cpu-reference":
+        sys.exit(cpu_reference_child(sys.argv[2]))
+    try:
+        if len(sys.argv) == 3 and sys.argv[1] == "--phase" and sys.argv[2] in ("11", "12", "13", "14"):
+            sys.exit(phase_only(sys.argv[2]))
+        sys.exit(main())
+    finally:
+        stop_children()

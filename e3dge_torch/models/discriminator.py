@@ -91,19 +91,26 @@ class VolumeRenderResBlock(nn.Module):
         return (out + skip) / math.sqrt(2.0)
 
 
+def volume_d_trunk(init_size: int = 64) -> tuple[nn.Sequential, int]:
+    """The volume D's CoordConv trunk over init_size^2 thumbs down to 2x2
+    (stylesdf_model.py:1369-1419's `convs`), and its output channels; the
+    volume-D encoders of `encoders/factory.py` share it."""
+    ch = VOLUME_D_CHANNELS
+    convs = [VolumeDiscConv(3, ch[init_size], 1, activate=True)]
+    in_ch = ch[init_size]
+    for i in range(int(math.log2(init_size)) - 1, 0, -1):
+        convs.append(VolumeRenderResBlock(in_ch, ch[2**i]))
+        in_ch = ch[2**i]
+    return nn.Sequential(*convs), in_ch
+
+
 class VolumeRenderDiscriminator(nn.Module):
     """Progressive CoordConv D over 64-res thumbs with the GAN logit and the
     (azim, elev) regression head (stylesdf_model.py:1369-1419)."""
 
     def __init__(self, init_size: int = 64):
         super().__init__()
-        ch = VOLUME_D_CHANNELS
-        convs = [VolumeDiscConv(3, ch[init_size], 1, activate=True)]
-        in_ch = ch[init_size]
-        for i in range(int(math.log2(init_size)) - 1, 0, -1):
-            convs.append(VolumeRenderResBlock(in_ch, ch[2**i]))
-            in_ch = ch[2**i]
-        self.convs = nn.Sequential(*convs)
+        self.convs, in_ch = volume_d_trunk(init_size)
         self.final_conv = VolumeDiscConv(in_ch, 3, 2)
 
     def forward(self, x: torch.Tensor):
@@ -125,6 +132,23 @@ class DiscResBlock(nn.Module):
         return (self.conv2(self.conv1(x)) + self.skip(x)) / math.sqrt(2.0)
 
 
+def sg2_trunk(input_size: int = 1024, channel_multiplier: int = 2,
+              channel_base: int = 512) -> tuple[nn.Sequential, int]:
+    """The full-resolution StyleGAN2 D's conv trunk down to 4x4
+    (stylesdf_model.py:1541-1596's `convs`, channel table :1630-1641), and its
+    output channels; the D-backbone encoders of `encoders/factory.py` share
+    it."""
+    cb, cm = channel_base, channel_multiplier
+    ch = {4: cb, 8: cb, 16: cb, 32: cb, 64: cb // 2 * cm, 128: cb // 4 * cm, 256: cb // 8 * cm,
+          512: cb // 16 * cm, 1024: cb // 32 * cm}
+    convs = [ConvLayer(3, ch[input_size], 1)]
+    in_ch = ch[input_size]
+    for i in range(int(math.log2(input_size)), 2, -1):
+        convs.append(DiscResBlock(in_ch, ch[2 ** (i - 1)]))
+        in_ch = ch[2 ** (i - 1)]
+    return nn.Sequential(*convs), in_ch
+
+
 class Discriminator(nn.Module):
     """Full-resolution StyleGAN2 D with minibatch stddev (stylesdf_model.py:
     1541-1617) over [B, 3, input_size, input_size] images -> [B, 1] logits; B
@@ -135,18 +159,11 @@ class Discriminator(nn.Module):
     def __init__(self, input_size: int = 1024, channel_multiplier: int = 2, channel_base: int = 512,
                  stddev_group: int = 4):
         super().__init__()
-        cb, cm = channel_base, channel_multiplier
-        ch = {4: cb, 8: cb, 16: cb, 32: cb, 64: cb // 2 * cm, 128: cb // 4 * cm, 256: cb // 8 * cm,
-              512: cb // 16 * cm, 1024: cb // 32 * cm}
         self.stddev_group = stddev_group
-        convs = [ConvLayer(3, ch[input_size], 1)]
-        in_ch = ch[input_size]
-        for i in range(int(math.log2(input_size)), 2, -1):
-            convs.append(DiscResBlock(in_ch, ch[2 ** (i - 1)]))
-            in_ch = ch[2 ** (i - 1)]
-        self.convs = nn.Sequential(*convs)
-        self.final_conv = ConvLayer(in_ch + 1, ch[4], 3)
-        self.final_linear = nn.Sequential(EqualLinear(ch[4] * 4 * 4, ch[4], activation=True), EqualLinear(ch[4], 1))
+        self.convs, in_ch = sg2_trunk(input_size, channel_multiplier, channel_base)
+        cb = channel_base
+        self.final_conv = ConvLayer(in_ch + 1, cb, 3)
+        self.final_linear = nn.Sequential(EqualLinear(cb * 4 * 4, cb, activation=True), EqualLinear(cb, 1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = self.convs(x)

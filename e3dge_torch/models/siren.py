@@ -137,6 +137,29 @@ class SirenGenerator(nn.Module):
         out = torch.cat([rgb, sdf], dim=-1)
         return torch.cat([out, features], dim=-1) if self.output_features else out
 
+    def forward_ddf(self, pts, views, styles, feat_layer: int = -1, multi_layer: bool = False) -> dict:
+        """The SirenGeneratorDDF ablation (reference volume_renderer.py:561-632;
+        `e3dge_tpu/models/siren.py:180`): {"out": [rgb, sdf] [..., 4], "feats":
+        the feat_layer'th backbone layer's output, every layer from feat_layer
+        on with multi_layer, and the view layer's features when feat_layer is
+        -1 or multi_layer, concatenated on the last axis}.
+
+        It runs this eager twin on every device, the card included: the field
+        kernel writes only the last layer's hidden state (`raw_h`), not each
+        layer's, and the JAX version runs outside its Pallas kernel too."""
+        h = pts
+        feats = []
+        for i, layer in enumerate(self.pts_linears):
+            h = layer(h, self._style_row(styles, i))
+            if (multi_layer and feat_layer <= i) or (not multi_layer and feat_layer == i):
+                feats.append(h)
+        sdf = self.geo_head(h)
+        rgb, out_features = self.tex_head(h, views, styles)
+        if feat_layer == -1 or multi_layer:
+            feats.append(out_features)
+        return {"out": torch.cat([rgb, sdf], dim=-1),
+                "feats": torch.cat(feats, dim=-1) if feats else h.new_zeros(h.shape[:-1] + (0,))}
+
     # -- the kernel's operands ------------------------------------------------
 
     def film_vectors(self, styles: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

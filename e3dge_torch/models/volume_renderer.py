@@ -487,6 +487,37 @@ class VolumeFeatureRenderer(nn.Module):
         valid = (pts.abs().amax(dim=-1, keepdim=True) < self.camera_dist_radius).to(pts.dtype)
         return pts, self.query_sdf(pts, styles), valid
 
+    def mlp_init_pass(
+        self, camera: CameraParams, styles: torch.Tensor, generator: torch.Generator | None = None,
+        t_rand: torch.Tensor | None = None,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The sphere-initialisation pass that trains the SIREN SDF from
+        scratch (`e3dge_tpu/models/volume_renderer.py:551`, reference
+        mlp_init_pass, volume_renderer.py:1833-1863): jittered frustum samples
+        of every pixel's ray -> (their sdf [B, H, W, S], the target ||pts|| -
+        (far - near) / 4 of a sphere, with no gradient through pts).
+
+        The grid subtlety that the golden oracle pins: the base grid follows
+        `cfg.offset_sampling` (under the released default the offset grid
+        linspace(0, 1 - 1/S)), while the jitter is always the per-sample
+        "mids" scheme, as the reference jitters `self.t_vals` that way on
+        either grid. The jitter's uniform draw [B, H, W, S] is `t_rand` (the
+        tests pass JAX's), else it comes from `generator`. A training pass:
+        the sdf comes from the twin whenever a field parameter or the styles
+        require grad, and from one `highest` kernel launch otherwise."""
+        c = self.cfg
+        res = c.out_im_res
+        rays_o, rays_d, _ = get_rays(camera.focal, camera.poses, res)
+        b = rays_o.shape[0]
+        near = camera.near.reshape(b, 1, 1).expand(b, res, res)
+        far = camera.far.reshape(b, 1, 1).expand(b, res, res)
+        z_vals = sample_z_vals(near, far, (b, res, res), c.n_samples, c.offset_sampling, perturb=True,
+                               jitter="mids", generator=generator, u=t_rand)
+        pts = rays_to_points(rays_o, rays_d, z_vals)
+        sdf = self.query_sdf(pts, styles)[..., 0]
+        radius = (camera.far - camera.near).reshape(b, 1, 1, 1) / 4.0
+        return sdf, torch.linalg.norm(pts.detach(), dim=-1) - radius
+
 
 def eikonal_term(
     renderer: VolumeFeatureRenderer, pts: torch.Tensor, styles: torch.Tensor, create_graph: bool = True

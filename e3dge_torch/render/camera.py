@@ -10,6 +10,8 @@ from typing import NamedTuple
 
 import torch
 
+from e3dge_torch.config import CameraConfig
+
 
 class CameraParams(NamedTuple):
     """Field for field the JAX `CameraParams` (camera_utils.py:141-153)."""
@@ -81,6 +83,33 @@ def camera_params_from_angles(
     return CameraParams(poses, extrinsics, focal, near, far, viewpoint, calibs)
 
 
+def sample_camera_params(generator: torch.Generator, batch: int, resolution: int,
+                         cfg: CameraConfig = CameraConfig()) -> CameraParams:
+    """Random viewpoints (`e3dge_tpu/render/camera.py:105`, which takes a key
+    where this takes a generator): azimuth and elevation around their means,
+    gaussian with the ranges as std, or uniform within +-range with
+    cfg.uniform, drawn from `generator` on its device, azimuths first."""
+    def draw(scale: float) -> torch.Tensor:
+        if cfg.uniform:
+            return (torch.rand(batch, generator=generator, device=generator.device) * 2 - 1) * scale
+        return scale * torch.randn(batch, generator=generator, device=generator.device)
+
+    azim, elev = draw(cfg.azim_range), draw(cfg.elev_range)
+    return camera_params_from_angles(cfg.azim_mean + azim, cfg.elev_mean + elev, resolution, cfg.fov_ang,
+                                     cfg.dist_radius)
+
+
+def sweep_camera_params(batch: int, resolution: int, cfg: CameraConfig = CameraConfig(),
+                        n_views: int = 8) -> CameraParams:
+    """The deterministic azimuth sweep at elevation 0 of the novel-view
+    trajectories (`e3dge_tpu/render/camera.py:124`): n_views azimuths over
+    [-range, +range] inclusive, the whole sweep repeated for each of `batch`
+    items ([batch * n_views] cameras)."""
+    azim = (-cfg.azim_range + (2 * cfg.azim_range / (n_views - 1)) * torch.arange(n_views)).repeat(batch)
+    return camera_params_from_angles(cfg.azim_mean + azim, cfg.elev_mean + torch.zeros_like(azim), resolution,
+                                     cfg.fov_ang, cfg.dist_radius)
+
+
 def project_points(points: torch.Tensor, calibs: torch.Tensor) -> torch.Tensor:
     """[B, 3, N] world points -> [B, 3, N] (u, v, depth), depth = -z_cam
     (reference `geometry.perspective`)."""
@@ -88,3 +117,10 @@ def project_points(points: torch.Tensor, calibs: torch.Tensor) -> torch.Tensor:
     depth = -homo[:, 2:3]
     xy = homo[:, :2] / torch.where(torch.abs(depth) < 1e-8, torch.full_like(depth, 1e-8), depth)
     return torch.cat([xy, depth], dim=1)
+
+
+def project_points_orthogonal(points: torch.Tensor, calibs: torch.Tensor) -> torch.Tensor:
+    """[B, 3, N] world points -> [B, 3, N] (u, v, z) by the calibs' affine
+    map without the perspective divide (`e3dge_tpu/render/camera.py:159`,
+    reference `geometry.orthogonal`, vendor/pifu/lib/geometry.py:83-99)."""
+    return calibs[:, :3, :3] @ points + calibs[:, :3, 3:4]

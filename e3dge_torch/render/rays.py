@@ -1,6 +1,6 @@
 """Rays and depth samples — counterpart of `e3dge_tpu/render/rays.py`
 (reference volume_renderer.py:768-794, 1211-1233), the training jitter of the
-depth samples included."""
+depth samples included, and the secant search for the surface along rays."""
 
 from __future__ import annotations
 
@@ -74,3 +74,52 @@ def sample_z_vals(
 def rays_to_points(rays_o: torch.Tensor, rays_d: torch.Tensor, z_vals: torch.Tensor) -> torch.Tensor:
     """pts[b, h, w, s] = o + t * d -> [B, H, W, S, 3]."""
     return rays_o[..., None, :] + rays_d[..., None, :] * z_vals[..., :, None]
+
+
+def find_surface_secant(
+    sdf_fn,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    near: float | torch.Tensor,
+    far: float | torch.Tensor,
+    n_coarse: int = 24,
+    n_secant: int = 8,
+    level: float = 0.0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The surface along rays by the secant method (`e3dge_tpu/render/rays.py:
+    105`, reference `geometry.render_functions.perform_ray_marching` /
+    `run_Secant_method`, vendor/pifu/lib/geometry.py:132-330, for an SDF at
+    `level`): n_coarse samples from near to far bracket the first
+    outside-to-inside sign change, then n_secant secant steps refine the
+    root. The counts are fixed and no branch reads the data: masks choose the
+    values, so one call runs sdf_fn once at [..., n_coarse] points and
+    n_secant times at [...] points.
+
+    rays_o, rays_d [..., 3]; near, far broadcastable to [...]; sdf_fn(pts
+    [..., 3]) -> [..., 1] (e.g. `VolumeFeatureRenderer.query_sdf` with its
+    styles bound: one field launch per call on the card, without grad).
+    Returns (z_surf [...], far where a ray does not hit; hit [...] bool)."""
+    shape = rays_o.shape[:-1]
+    dev, dt = rays_o.device, rays_o.dtype
+    t = torch.linspace(0.0, 1.0, n_coarse, device=dev, dtype=dt)
+    near = torch.as_tensor(near, device=dev, dtype=dt).expand(shape)
+    far = torch.as_tensor(far, device=dev, dtype=dt).expand(shape)
+    z = near[..., None] * (1.0 - t) + far[..., None] * t  # [..., C]
+    f = sdf_fn(rays_o[..., None, :] + rays_d[..., None, :] * z[..., None])[..., 0] - level
+
+    crossing = (f[..., :-1] > 0) & (f[..., 1:] <= 0)
+    hit = crossing.any(dim=-1)
+    idx = torch.argmax(crossing.to(torch.uint8), dim=-1, keepdim=True)  # the first bracket
+
+    z_low, f_low = z.gather(-1, idx)[..., 0], f.gather(-1, idx)[..., 0]
+    z_high, f_high = z.gather(-1, idx + 1)[..., 0], f.gather(-1, idx + 1)[..., 0]
+    z_pred = z_low - f_low * (z_high - z_low) / (f_high - f_low - 1e-12)
+    for _ in range(n_secant):
+        f_mid = sdf_fn(rays_o + z_pred[..., None] * rays_d)[..., 0] - level
+        outside = f_mid > 0
+        z_low = torch.where(outside, z_pred, z_low)
+        f_low = torch.where(outside, f_mid, f_low)
+        z_high = torch.where(outside, z_high, z_pred)
+        f_high = torch.where(outside, f_high, f_mid)
+        z_pred = z_low - f_low * (z_high - z_low) / (f_high - f_low - 1e-12)
+    return torch.where(hit, z_pred, far), hit

@@ -1,9 +1,10 @@
-"""Image folders; counterpart of `e3dge_tpu/training/data.py:25-111,
-159-178` (reference `project/data/dataset.py`): the training folder
-(MultiResolutionDatasetLMS, :92: random horizontal flips, a 64^2 thumb,
-optional landmark heatmaps) and the numeric-name-sorted test folder
-(ImagesDatasetEval, :231), as [-1, 1] float32 CHW batches read and resized by
-Pillow as in the JAX package.
+"""Image folders; counterpart of `e3dge_tpu/training/data.py` (reference
+`project/data/dataset.py`): the training folder (MultiResolutionDatasetLMS,
+:92: random horizontal flips, a 64^2 thumb, optional landmark heatmaps), the
+ShapeNet renders with their pose files (MultiResolutionDataset_ShapeNet,
+:328) and the numeric-name-sorted test folder (ImagesDatasetEval, :231), as
+[-1, 1] float32 CHW batches read and resized by Pillow as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -112,6 +113,44 @@ class ImageFolderDataset:
                     rows, flips = mesh.shard_rows(rows, world), mesh.shard_rows(flips, world)
                 items = [self._item(int(j), f) for j, f in zip(rows, flips)]
                 yield {k: np.stack([it[k] for it in items]) for k in items[0]}
+
+
+class ShapeNetDataset:
+    """ShapeNet renders with a pose file each (`e3dge_tpu/training/data.py:
+    114`, reference MultiResolutionDataset_ShapeNet, data/dataset.py:
+    328-377): a list file of image paths relative to its directory, each
+    image's 4x4 camera-to-world pose at ../pose/<stem>.txt; with zero_pose
+    (the reference's behaviour, dataset.py:357-359) the pose's rotation is
+    the identity and its translation zero before it is inverted into the
+    extrinsics. Host code: numpy arrays, no consumer on the card."""
+
+    def __init__(self, list_file: str | Path, size: int = 256, zero_pose: bool = True):
+        list_file = Path(list_file)
+        self.root = list_file.parent
+        self.img_paths = [self.root / line.strip() for line in list_file.read_text().splitlines() if line.strip()]
+        if not self.img_paths:
+            raise FileNotFoundError(f"empty ShapeNet list {list_file}")
+        self.size, self.zero_pose = size, zero_pose
+
+    def __len__(self):
+        return len(self.img_paths)
+
+    def __getitem__(self, i: int) -> dict:
+        p = self.img_paths[i]
+        pose = np.loadtxt(p.parent.parent / "pose" / f"{p.stem}.txt").reshape(4, 4).astype(np.float32)
+        if self.zero_pose:
+            pose[:3, :3] = np.eye(3)
+            pose[:3, 3] = 0.0
+        return {"image": load_image(p, self.size), "img_path": str(p), "poses": pose[:3, :4],
+                "extrinsics": np.linalg.inv(pose)[:3, :4].astype(np.float32)}
+
+    def iter_batches(self, batch_size: int) -> Iterator[dict]:
+        """The list in order, batch_size items a batch (the last one short)."""
+        for s in range(0, len(self), batch_size):
+            items = [self[j] for j in range(s, min(s + batch_size, len(self)))]
+            yield {"image": np.stack([it["image"] for it in items]), "img_path": [it["img_path"] for it in items],
+                   "poses": np.stack([it["poses"] for it in items]),
+                   "extrinsics": np.stack([it["extrinsics"] for it in items])}
 
 
 class EvalImageDataset:

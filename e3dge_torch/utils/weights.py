@@ -14,6 +14,11 @@ rules of `flax_path_to_torch`'s "discriminator" branch, and
 `perceptual_state_dict_from_jax` carries the JAX package's perceptual nets
 (LPIPS, the ArcFace of IDLoss) across by the rules of
 `torch_ckpt.lpips_path_to_torch` / `arcface_path_to_torch`, inverted.
+`siren_state_dict_from_jax`, `encoder_state_dict_from_jax` (every
+`set_encoder` name: `flax_path_to_torch`'s encoder, volume-D and D rules
+inverted, and the port's own for DEncoder's heads and FullEncoder's halves)
+and `align_state_dict_from_jax` (the align ablation blocks, the port's own
+rules) carry standalone JAX modules across.
 """
 
 from __future__ import annotations
@@ -77,6 +82,7 @@ def _bottleneck(tp: str, se: bool) -> dict[str, Rule]:
 
 
 def _encoder_rule(rel: str) -> Rule | None:
+    rel = rel.removeprefix("backbone/")  # the variant encoders' IR trunk (variants.py::_IRBackbone)
     m = re.match(r"body_(\d+)/(.+)", rel)
     if m:
         return _bottleneck(f"body.{m.group(1)}", se=True).get(m.group(2))
@@ -89,9 +95,11 @@ def _encoder_rule(rel: str) -> Rule | None:
     m = re.match(r"(latlayer\d+)/(.+)", rel)
     if m:
         return _conv(m.group(1)).get(m.group(2))
-    m = re.match(r"styles_(pigan|stylegan)_(\d+)/(.+)", rel)
+    # styles_pigan.i / styles_stylegan.i (the V2 encoder and e4e's pigan rows),
+    # plain styles.i (e4e's and ReStyle's decoder rows), thumb_styles.i (ReStyle's pigan rows)
+    m = re.match(r"(styles_pigan|styles_stylegan|styles|thumb_styles)_(\d+)/(.+)", rel)
     if m:
-        base, sub = f"styles_{m.group(1)}.{m.group(2)}", m.group(3)
+        base, sub = f"{m.group(1)}.{m.group(2)}", m.group(3)
         mc = re.match(r"convs_(\d+)/(.+)", sub)
         if mc:  # Sequential(conv, lrelu, conv, ...): conv i at index 2i
             return _conv(f"{base}.convs.{2 * int(mc.group(1))}").get(mc.group(2))
@@ -134,6 +142,9 @@ def _volume_d_rule(rel: str) -> Rule | None:
         "convs_0/act_bias": ("convs.0.activation.bias", _id),
         "final_conv/conv/conv/kernel": ("final_conv.conv.weight", _hwio_to_oihw),
         "final_conv/conv/conv/bias": ("final_conv.conv.bias", _id),
+        # VolumeRenderDiscriminatorEncoder's W+ head (stylesdf_model.py:1429-1430)
+        "wplus_latents_pred_conv/conv/conv/kernel": ("wplus_latents_pred_conv.conv.weight", _hwio_to_oihw),
+        "wplus_latents_pred_conv/conv/conv/bias": ("wplus_latents_pred_conv.conv.bias", _id),
     }
     if rel in table:
         return table[rel]
@@ -181,25 +192,29 @@ def _hgfilter_rule(tp: str, sub: str) -> Rule | None:
     return None
 
 
+def _context_conv_rule(n: str, sub: str) -> Rule | None:
+    """A context conv (`pifu/local_net.py::context_conv`) under torch name n."""
+    table = {
+        "conv_in/conv/kernel": (f"{n}.0.weight", _hwio_to_oihw),
+        # InstanceNorm (the resnetfc variant)
+        "rb_norm1/scale": (f"{n}.1.conv.0.weight", _id),
+        "rb_norm1/bias": (f"{n}.1.conv.0.bias", _id),
+        "rb_conv1/conv/kernel": (f"{n}.1.conv.2.weight", _hwio_to_oihw),
+        "rb_norm2/scale": (f"{n}.1.conv.3.weight", _id),
+        "rb_norm2/bias": (f"{n}.1.conv.3.bias", _id),
+        "rb_conv2/conv/kernel": (f"{n}.1.conv.5.weight", _hwio_to_oihw),
+        "conv_out/conv/kernel": (f"{n}.2.weight", _hwio_to_oihw),
+    }
+    # BatchNorm parameters and running statistics (the "bn" variant)
+    for ours, theirs in (("rb_norm1", f"{n}.1.conv.0"), ("rb_norm2", f"{n}.1.conv.3")):
+        table.update({f"{ours}/{k}": v for k, v in _bn(theirs).items()})
+    return table.get(sub)
+
+
 def _local_rule(rel: str) -> Rule | None:
     m = re.match(r"(residual_conv|depth_conv)/(.+)", rel)
     if m:
-        n = m.group(1)
-        table = {
-            "conv_in/conv/kernel": (f"{n}.0.weight", _hwio_to_oihw),
-            # InstanceNorm (the resnetfc variant)
-            "rb_norm1/scale": (f"{n}.1.conv.0.weight", _id),
-            "rb_norm1/bias": (f"{n}.1.conv.0.bias", _id),
-            "rb_conv1/conv/kernel": (f"{n}.1.conv.2.weight", _hwio_to_oihw),
-            "rb_norm2/scale": (f"{n}.1.conv.3.weight", _id),
-            "rb_norm2/bias": (f"{n}.1.conv.3.bias", _id),
-            "rb_conv2/conv/kernel": (f"{n}.1.conv.5.weight", _hwio_to_oihw),
-            "conv_out/conv/kernel": (f"{n}.2.weight", _hwio_to_oihw),
-        }
-        # BatchNorm parameters and running statistics (the "bn" variant)
-        for ours, theirs in (("rb_norm1", f"{n}.1.conv.0"), ("rb_norm2", f"{n}.1.conv.3")):
-            table.update({f"{ours}/{k}": v for k, v in _bn(theirs).items()})
-        return table.get(m.group(2))
+        return _context_conv_rule(m.group(1), m.group(2))
     m = re.match(r"image_filter/(.+)", rel)
     if m:
         return _hgfilter_rule("image_filter", m.group(1))
@@ -341,6 +356,7 @@ _DISC_BLOCK = {
 
 
 def _discriminator_rule(rel: str) -> str | None:
+    rel = rel.removeprefix("trunk/")  # the D-backbone encoders' trunk (factory.py::_SG2Trunk)
     if rel in _DISC_TABLE:
         return _DISC_TABLE[rel]
     m = re.match(r"convs_(\d+)/(.+)", rel)
@@ -409,6 +425,141 @@ def perceptual_state_dict_from_jax(variables: dict, kind: str) -> dict[str, torc
     for key in [k for k in sd if k.endswith(".running_mean")]:
         sd[key[: -len("running_mean")] + "num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
     return sd
+
+
+def _state_dict_by_rule(variables: dict, rule: Callable[[str], Rule | None], what: str) -> dict[str, torch.Tensor]:
+    """A standalone JAX module's variables (nested dicts of arrays under
+    'params' and, with BatchNorm, 'batch_stats') -> its torch state dict by
+    `rule` (a leaf's path past the collection -> (torch key, transform)).
+    Raises on a leaf it cannot map; BatchNorm's `num_batches_tracked` is
+    added as 0."""
+    sd, unmapped = {}, []
+    for path, value in _flatten(variables).items():
+        r = rule(path.split("/", 1)[1])
+        if r is None:
+            unmapped.append(path)
+            continue
+        key, transform = r
+        sd[key] = torch.from_numpy(np.array(transform(np.asarray(value, np.float32)), dtype=np.float32))
+    if unmapped:
+        raise KeyError(f"{what}: {len(unmapped)} JAX leaves without a torch key, e.g. {unmapped[:5]}")
+    for key in [k for k in sd if k.endswith(".running_mean")]:
+        sd[key[: -len("running_mean")] + "num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+    return sd
+
+
+def siren_state_dict_from_jax(variables: dict) -> dict[str, torch.Tensor]:
+    """A standalone JAX `SirenGenerator`'s variables -> the port's
+    `SirenGenerator` state dict (the generator's renderer.network rules)."""
+    def rule(rel):
+        r = _generator_rule(f"renderer/network/{rel}")
+        return None if r is None else (r[0].removeprefix("renderer.network."), r[1])
+
+    return _state_dict_by_rule(variables, rule, "SirenGenerator")
+
+
+def _disc_rule(rel: str) -> Rule | None:
+    key = _discriminator_rule(rel)
+    return None if key is None else (key, _id)
+
+
+def _d_encoder_rule(rel: str) -> Rule | None:
+    # DEncoder's downsampling ConvLayer heads (blur 0, conv 1, activation 2)
+    m = re.match(r"(renderer|stylegan)_latents_conv/(conv/weight|bias)", rel)
+    if m:
+        return (f"{m.group(1)}_latents_conv.{'1.weight' if m.group(2) == 'conv/weight' else '2.bias'}", _id)
+    return _disc_rule(rel)
+
+
+def _prefixed(prefix: str, rule: Callable[[str], Rule | None]) -> Callable[[str], Rule | None]:
+    def r(rel):
+        if not rel.startswith(f"{prefix}/"):
+            return None
+        got = rule(rel[len(prefix) + 1:])
+        return None if got is None else (f"{prefix}.{got[0]}", got[1])
+    return r
+
+
+def _full_encoder_rule(rel: str) -> Rule | None:
+    return _prefixed("renderer_encoder", _volume_d_rule)(rel) or _prefixed("stylegan_encoder", _disc_rule)(rel)
+
+
+# set_encoder's names -> the rule of their leaves: torch_ckpt.flax_path_to_torch's
+# "encoder" (the IR trunk family), "volume_discriminator" (the volume-D
+# encoders) and "discriminator" (StyleGANEncoder, under "trunk/") branches,
+# inverted; DEncoder's heads and FullEncoder's two halves have no rule there
+ENCODER_RULES = {
+    "HybridGradualStyleEncoder_V2": _encoder_rule,
+    "HybridBackboneEncoder": _encoder_rule,
+    "BackboneEncoderRenderer": _encoder_rule,
+    "Encoder4Editing": _encoder_rule,
+    "Encoder4EditingHybridBaseline": _encoder_rule,
+    "VolumeRenderDiscriminatorEncoder": _volume_d_rule,
+    "VolumeStyleEncoder": _volume_d_rule,
+    "StyleGANEncoder": _disc_rule,
+    "DEncoder": _d_encoder_rule,
+    "FullEncoder": _full_encoder_rule,
+}
+
+
+def encoder_state_dict_from_jax(encoder_type: str, variables: dict) -> dict[str, torch.Tensor]:
+    """The variables of the JAX `set_encoder(encoder_type, ...)` module ->
+    the state dict of the port's `encoders.factory.set_encoder(encoder_type,
+    ...)`, loadable with strict=True. Raises on a leaf it cannot map."""
+    return _state_dict_by_rule(variables, ENCODER_RULES[encoder_type], encoder_type)
+
+
+def _residual_encoder_rule(rel: str) -> Rule | None:
+    m = re.match(r"condition_(scale|shift)3_([02])/(weight|bias)", rel)
+    if m:  # Sequential(EqualConv2d, ScaledLeakyReLU, EqualConv2d)
+        return (f"condition_{m.group(1)}3.{m.group(2)}.{m.group(3)}", _id)
+    return _grid_align_rule(rel)  # conv_layer1 and the bottleneck stages, as the ADA aligner's
+
+
+def _feature_aligner_rule(rel: str) -> Rule | None:
+    m = re.match(r"(residual_conv|depth_conv|que_thumb_conv)/(.+)", rel)
+    if m:
+        return _context_conv_rule(m.group(1), m.group(2))
+    if rel == "downsample_channel_conv/conv/kernel":
+        return ("downsample_channel_conv.weight", _hwio_to_oihw)
+    return _grid_align_rule(rel)  # conv_layer1 and the bottleneck stages, as the ADA aligner's
+
+
+def _group_norm_convs_rule(rel: str) -> Rule | None:
+    """ConvResBlock / ResidualConvBlock: GroupNorms norm1, norm2 (flax scale,
+    bias) and convs conv1, conv2, conv_out, short_cut."""
+    m = re.match(r"(norm[12])/(scale|bias)", rel)
+    if m:
+        return (f"{m.group(1)}.{'weight' if m.group(2) == 'scale' else 'bias'}", _id)
+    m = re.match(r"(conv[12]|conv_out|short_cut)/(.+)", rel)
+    return _conv(m.group(1)).get(m.group(2)) if m else None
+
+
+def _fuse_sft_block_rule(rel: str) -> Rule | None:
+    m = re.match(r"(scale|shift)_([02])/(.+)", rel)
+    if m:  # Sequential(conv, LeakyReLU, conv)
+        return _conv(f"{m.group(1)}.{m.group(2)}").get(m.group(3))
+    return _prefixed("encode_enc", _group_norm_convs_rule)(rel)
+
+
+# the align ablation blocks: no rule in torch_ckpt; the port's own, the
+# reference's torch names (alignment_old.py, sft.py, helpers.py)
+ALIGN_RULES = {
+    "ResidualEncoder": _residual_encoder_rule,
+    "FeatureAligner": _feature_aligner_rule,
+    "DemodulatedConv2d": lambda rel: (rel, _id) if rel in ("weight", "bias") else None,
+    "ConvResBlock": _group_norm_convs_rule,
+    "FuseSftBlock": _fuse_sft_block_rule,
+    "ResidualConvBlock": _group_norm_convs_rule,
+    "AlignInpainterFusionBlock": _prefixed("fusionBlock", _group_norm_convs_rule),
+}
+
+
+def align_state_dict_from_jax(block: str, variables: dict) -> dict[str, torch.Tensor]:
+    """The variables of a JAX `models/align.py` ablation block (`ALIGN_RULES`'
+    names) -> the state dict of the port's block of that name, loadable with
+    strict=True. Raises on a leaf it cannot map."""
+    return _state_dict_by_rule(variables, ALIGN_RULES[block], block)
 
 
 def load_jax_variables(model: nn.Module, variables: dict) -> None:

@@ -4,11 +4,15 @@ score that crosses zero is not read at its last digits, and the final-state
 gap as the worst group's relative L2 gap; `spread_limits` sets the limits
 from the largest gap among the pairs of one-rank runs, and every gate that
 holds ranks to one rank (11a, `dp_scaling.py`, `sp_scaling.py`) takes them
-from three such runs (`rank_limits`)."""
+from three such runs (`rank_limits`); phase 10b's runs, shared as the
+one-rank reference of 11b and 12, keep those limits; a CPU reference in a
+child process (`CpuReferences`) gives the in-process numbers; the per-phase
+wall table; and phase 14's gap helpers."""
 
 import json
 import os
 
+import numpy as np
 import pytest
 import torch
 
@@ -114,3 +118,115 @@ def test_leaf_limits_add_the_field_kernels_own_gap():
     assert gap < lim
     name, gap, lim = cs.worst_leaf(cs.leaf_gaps(detached, cpu), limits)
     assert (name, gap) == ("head", pytest.approx(1.0)) and gap >= lim
+
+
+def test_a_cpu_reference_in_a_child_process_equals_the_in_process_run():
+    """The card-vs-CPU gates take their CPU reference from a child process
+    (`CpuReferences`, `chip_smoke.py --cpu-reference`) that runs beside the
+    card's work: at the same ST1_CPU_THREADS threads it gives the numbers of
+    the same job run in this process, bit for bit, and a failing job fails
+    the phase with the child's output."""
+    from e3dge_torch.config import tiny_full_config
+
+    cfg = tiny_full_config()
+    refs = cs.CpuReferences("test")
+    first = refs.add("f32_image2image_cpu", cfg, None)
+    second = refs.add("f32_image2image_cpu", cfg, "raw_density_gain")
+    refs.start()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(cs.ST1_CPU_THREADS)
+    try:
+        want = [cs.f32_image2image_cpu(cfg, w) for w in (None, "raw_density_gain")]
+    finally:
+        torch.set_num_threads(threads)
+    got = [refs.result(first), refs.result(second)]
+    assert got[0].shape == want[0].shape and torch.isfinite(got[0]).all()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert not torch.equal(want[0], want[1])  # the second job's weights reached the child
+
+    bad = cs.CpuReferences("test_failing")
+    job = bad.add("f32_image2image_cpu", cfg, "no_such_weights")
+    bad.start()
+    with pytest.raises(AssertionError, match="no_such_weights"):
+        bad.result(job)
+
+
+def test_the_shared_one_rank_reference_keeps_rank_limits(tmp_path, monkeypatch):
+    """Phase 10b's uninterrupted runs serve as the one-rank reference of
+    phases 11b and 12 (`one_rank_reference`, as `rank_reference` builds it
+    without phase 10): the limits are `rank_limits` over all SPREAD_RUNS
+    runs (psnr not read), not over one pair, the flags gain the reference's
+    depth, and fewer runs raise."""
+    monkeypatch.setattr(cs, "_groups", _groups)
+    works = _three_runs(tmp_path)
+    ref = cs.one_rank_reference(works, ["--stage", "2.2"])
+    assert ref["work"] == works[0]
+    assert ref["argv"] == ["--stage", "2.2", "--iters", str(cs.RANK_REF_ITERS)]
+    assert (ref["lim_loss"], ref["lim_state"]) == cs.rank_limits(works, "runs")
+    assert ref["lim_loss"] == pytest.approx(cs.RESUME_FACTOR * 0.0009 / 9.0)
+    with pytest.raises(ValueError, match="spread needs"):
+        cs.one_rank_reference(works[:2], [])
+
+
+def test_the_wall_table_splits_out_the_cpu_references_and_the_ranks(monkeypatch):
+    """The per-phase wall table printed before the last line: each phase's
+    seconds, a phase opened again (5 after 6) adding to its row, and the
+    seconds of its CPU references and rank processes and of the waits on
+    them in their own columns."""
+    clock = iter([0.0, 10.0, 30.0, 31.0])
+    monkeypatch.setattr(cs.time, "perf_counter", lambda: next(clock))
+    monkeypatch.setattr(cs, "WALL", {})
+    monkeypatch.setattr(cs, "_CURRENT", {"phase": None, "t0": 0.0})
+    cs.phase("5")
+    cs.wall_add("cpu_reference_s", 25.0)
+    cs.phase("6")
+    cs.wall_add("ranks_s", 12.5)
+    cs.wall_add("ranks_wait_s", 2.0)
+    cs.phase("5")
+    table = cs.wall_table()
+    assert table["wall_s"]["5"]["s"] == pytest.approx(11.0)
+    assert table["wall_s"]["5"]["cpu_reference_s"] == 25.0
+    assert table["wall_s"]["6"] == {"s": 20.0, "cpu_reference_s": 0.0, "cpu_wait_s": 0.0, "ranks_s": 12.5,
+                                    "ranks_wait_s": 2.0}
+    assert table["total_s"] == pytest.approx(31.0)
+
+
+def test_the_long_tail_gates_read_gaps_by_magnitude_and_skip_ambiguous_rays():
+    """Phase 14: `mag_gap` is a gap over the reference's largest magnitude
+    (run_gap's rule); `secant_gap` compares z only on rays both runs hit
+    with no coarse sample within LT_AMBIGUOUS of the level, and counts the
+    rays whose hit differs with no such sample (which fail the gate)."""
+    assert cs.mag_gap(np.array([1.0, -4.0]), np.array([1.0, -4.001])) == pytest.approx(0.001 / 4.001)
+    assert cs.mag_gap(2.0, 2.0) == 0.0
+    want = {"z": torch.tensor([1.0, 1.1, 0.9, 1.2]), "hit": torch.tensor([True, True, False, True]),
+            "near_level": torch.tensor([0.5, 0.5, 0.5, 1e-6])}
+    got = {"z": torch.tensor([1.0005, 1.1, 0.95, 0.3]), "hit": torch.tensor([True, True, False, False]),
+           "near_level": want["near_level"].clone()}
+    gap, differ, compared = cs.secant_gap(got, want)
+    assert (differ, compared) == (0, 2)  # ray 3 differs, but a sample sat at the level
+    assert gap == pytest.approx(0.0005 / 1.1, rel=1e-4)
+    got["hit"][1] = False
+    assert cs.secant_gap(got, want)[1] == 1
+
+
+def test_run_gap_reads_each_runs_checkpoint_once_while_it_is_unchanged(tmp_path):
+    """`cached_groups`: the gates compare one reference run with several
+    (each load is ~1 GB), so a run's groups are read once, and again when
+    its checkpoint changes (a resumed run rewrites it in place)."""
+    reads = []
+
+    def groups(work):
+        reads.append(os.path.basename(work))
+        return {"E": [torch.tensor([float(len(reads))], dtype=torch.float64)]}
+
+    ref = _run(tmp_path, "ref", [{"loss": 1.0}])
+    others = [_run(tmp_path, n, [{"loss": 1.0}]) for n in ("a", "b", "c")]
+    os.makedirs(os.path.join(ref, "models_final"))
+    ck = os.path.join(ref, "models_final", "variables.pt")
+    open(ck, "w").close()
+    for work in others:
+        cs.run_gap(work, ref, 1, groups)
+    assert reads.count("ref") == 1 and len(reads) == 4
+    os.utime(ck, ns=(1, 1))  # the checkpoint rewritten
+    cs.run_gap(others[0], ref, 1, groups)
+    assert reads.count("ref") == 2
