@@ -180,8 +180,25 @@ Phases, each failing loudly (any failure exits non-zero before the last line):
      within EVAL_TOL (control: two ground truths swapped), `python -m
      e3dge_torch.tools.gallery_video` of 2 images x 8 views written and
      read back (control: no --bounce). `python3 chip_smoke.py --phase 14`
-     runs phases 1, 2 and 14 only.
-The card-vs-CPU gates of phases 5, 7, 8, 9, 10c, 13 and 14 run their CPU
+     runs phases 1, 2 and 14 only;
+ 15. the stage-2 convergence probe (`python -m
+     e3dge_torch.tools.convergence_probe`, `run_probe`) at stage2_config's
+     full width, f32, B=4: a. the base variant: at iteration 0 l2_local_full
+     equals l2_global_full within PROBE_ID_TOL (control: the texture head's
+     last layer seeded), then PROBE_K iterations and both verdicts by
+     PROBE_MARGIN (control: the trained head zeroed); ms per iteration and per
+     eval, launches per iteration and per eval, device busy share, peak
+     memory; b. refweight and texture for PROBE_SHORT_ITERS iterations: the
+     three variants equal at iteration 0, l2_global_full equal after them
+     within RESUME_FACTOR x the spread of a same-seed base rerun (control:
+     another training seed), each variant's ms per iteration over
+     PROBE_WARM_ITERS warm ones, and the eval's re-render and
+     exact-occlusion chunk shapes at B=4 against the plain field and timed;
+     c. held_out_metrics at st2_reduced_config, B=2, card vs CPU within
+     ST1_TOL_TERM (control: the un-swapped ground truth; the CPU's jobs in
+     the phase's own child, started at its start). `python3 chip_smoke.py
+     --phase 15` runs phases 1, 2 and 15 only.
+The card-vs-CPU gates of phases 5, 7, 8, 9, 10c, 13, 14 and 15 run their CPU
 reference in a child process (`CpuReferences`: ST1_CPU_THREADS threads, the
 lowest priority), started before the phase's card work and read after it:
 phase 7 starts one for 7, 8, 9 and 13, which runs beside phases 7 to 10
@@ -4004,11 +4021,11 @@ def lt_calc_losses(dev, res_dir: str, gt_dir: str, out: str) -> dict:
     return scores
 
 
-def lt_gate(label: str, gap: float, limit: float, control: float | None = None) -> None:
-    """The card within `limit` of the CPU, and the control (if given)
-    outside it; logged."""
+def lt_gate(label: str, gap: float, limit: float, control: float | None = None, what: str = "card vs CPU") -> None:
+    """The card within `limit` of the CPU (or `what` the gap is), and the
+    control (if given) outside it; logged."""
     ok = gap <= limit and math.isfinite(gap)
-    text = f"  [{label}] card vs CPU: {gap:.3e} [limit {limit:g}] {'ok' if ok else 'FAIL'}"
+    text = f"  [{label}] {what}: {gap:.3e} [limit {limit:g}] {'ok' if ok else 'FAIL'}"
     if control is not None:
         text += f"; control {control:.3e}: {'outside' if control > limit else 'INSIDE'}"
     log(text)
@@ -4176,6 +4193,324 @@ def run_long_tail(device, root: str) -> dict:
     return long_tail_gates(long_tail_card(device, root))
 
 
+# Phase 15: the stage-2 convergence probe (`python -m e3dge_torch.tools.convergence_probe`) at
+# stage2_config's full width, f32, B=4, seeded weights, TF32 off. The base variant trains PROBE_K
+# iterations: the first eval point of the CLI's full-width record (300 iterations, evals every 10,
+# on an H100 80GB HBM3 at 700 W; PERF.md) at which both verdicts held by more than PROBE_MARGIN,
+# within the phase's 60 s.
+PROBE_K = 40
+# both verdicts by a relative margin: l2_local_full(K) below (1 - margin) x l2_local_full(0) and
+# x l2_global_full(K); the record read 0.363 and 0.131 at iteration 40 (and from 40 to 170 never
+# less than 0.121 against the baseline), so 0.05 leaves room for the run-to-run spread
+PROBE_MARGIN = 0.05
+# iteration 0, l2_local_full against l2_global_full (and the three variants' metrics against each
+# other), relative: the field kernel's 1e-4 tolerance carried through a mean of squares
+PROBE_ID_TOL = 1e-4
+PROBE_SHORT_ITERS = 2
+# 15b's ms per iteration of refweight and texture: this many more iterations after their
+# PROBE_SHORT_ITERS (the model warm: its first iterations are not timed)
+PROBE_WARM_ITERS = 2
+# the field kernel's launches (all siren_field_full, highest) per iteration and per eval: an
+# iteration samples (the render and its 2 SDF targets) and renders the ref and the query views (the
+# conditioned re-render is the twin's texture head); an eval renders the ref view (raw_h out), the
+# query view, the conditioned re-render (SFT in) and the global baseline; exact occlusion adds its
+# 16 chunks to each
+PROBE_LAUNCHES = {"base": (5, 4), "refweight": (21, 20), "texture": (5, 4)}
+# card vs CPU: held_out_metrics at st2_reduced_config, B=2, each metric within phase 8's term limit
+PROBE_CPU_BATCH, PROBE_CPU_VARIANTS = 2, ("refweight", "texture")
+
+
+@contextlib.contextmanager
+def tex_head(model, fill: str):
+    """The texture modulation head for the block: "zero" (E1 a no-op, as
+    at iteration 0), "last" (its last layer 0.02 N(0, 1) from SEED: the
+    modulations are constant non-zero vectors) or "all" (every parameter so:
+    the modulations follow the lookups and the occlusion weights); restored
+    after."""
+    head = model.local.local_feat_to_tex_modulations_linear
+    saved = {k: v.clone() for k, v in head.state_dict().items()}
+    gen = torch.Generator().manual_seed(SEED)
+    with torch.no_grad():
+        if fill == "zero":
+            for p in head.parameters():
+                p.zero_()
+        elif fill in ("last", "all"):
+            for p in (head.fc_1.weight, head.fc_1.bias) if fill == "last" else head.parameters():
+                p.copy_(0.02 * torch.randn(p.shape, generator=gen))
+        else:
+            raise ValueError(f"unknown fill {fill!r}")
+    try:
+        yield
+    finally:
+        head.load_state_dict(saved)
+
+
+def probe_identity(m: dict) -> float:
+    """|l2_local_full - l2_global_full| / l2_global_full of one eval."""
+    return abs(m["l2_local_full"] - m["l2_global_full"]) / abs(m["l2_global_full"])
+
+
+def probe_margins(first: dict, last: dict) -> dict:
+    """The verdicts' relative margins: `improved` 1 - l2_local_full(last) /
+    l2_local_full(first), `beats_baseline` 1 - l2_local_full(last) /
+    l2_global_full(last). A gate holds both above PROBE_MARGIN."""
+    return {"improved": 1 - last["l2_local_full"] / first["l2_local_full"],
+            "beats_baseline": 1 - last["l2_local_full"] / last["l2_global_full"]}
+
+
+def probe_verdict_holds(margins: dict) -> bool:
+    return all(v > PROBE_MARGIN for v in margins.values())
+
+
+def probe_metric_gap(got: dict, want: dict, keys=None) -> float:
+    """The largest relative gap over the metrics (floor 1e-6, phase 8's)."""
+    from e3dge_torch.tools.convergence_probe import METRICS
+
+    return max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-6) for k in keys or METRICS)
+
+
+def probe_kernel_cases() -> tuple:
+    """The probe's launch shapes new to the `highest` kernel, from
+    stage2_config at B=4: the eval's conditioned re-render (the whole field
+    with SFT in, no raw_h) and one exact-occlusion chunk (`path_cases`'
+    chunk at B=4): (label, N, SFT)."""
+    from e3dge_torch.config import stage2_config
+
+    c = stage2_config().renderer
+    chunk = next(n for label, _, n, _ in path_cases() if label == "occlusion chunk")
+    return (("15 eval re-render, SFT in", c.out_im_res ** 2 * c.n_samples, True),
+            ("15 exact-occlusion chunk", chunk, False))
+
+
+def probe_pairs(model, batch_size: int) -> dict:
+    """A held-out batch of batch_size pairs from the probe's EVAL_STREAM
+    under SEED, drawn on the model's device, on the CPU."""
+    from e3dge_torch.tools import convergence_probe as cp
+    from e3dge_torch.training.train import stream_generator
+
+    b = cp.draw_pairs(model, batch_size, stream_generator(model.device, SEED, *cp.EVAL_STREAM))
+    cpu = torch.device("cpu")
+    return {k: [n.to(cpu) for n in v] if k == "noise" else to_dev(v, cpu) for k, v in b.items()}
+
+
+def probe_eval(cfg, dev, data: dict, variant: str, control: bool = False) -> dict:
+    """`held_out_metrics` of the probe's seeded build of `variant` at cfg,
+    its texture head seeded whole (`tex_head` "all": E1 conditions the
+    render through its lookups and occlusion weights), on `data` on dev.
+    With `control`, {"metrics", "control"}: the control holds the same
+    renders against each ref's own images (the cameras still swapped, the
+    ground truths not). On the CPU, a job of the `CpuReferences` child."""
+    from unittest import mock
+
+    from e3dge_torch.render.camera import CameraParams
+    from e3dge_torch.tools import convergence_probe as cp
+    from e3dge_torch.training import steps
+
+    dev = torch.device(dev)
+    model, ml, _ = cp.build(variant, cfg, dev, SEED)
+    batch = {k: [n.to(dev) for n in v] if k == "noise" else to_dev(v, dev) for k, v in data.items()}
+
+    def cameras_only(tree):
+        return steps.swap_tree(tree) if isinstance(tree, CameraParams) else tree
+
+    with tex_head(model, "all"):
+        metrics = cp.held_out_metrics(model, ml, variant, batch)
+        if not control:
+            return metrics
+        with mock.patch.object(cp, "swap_tree", cameras_only):
+            return {"metrics": metrics, "control": cp.held_out_metrics(model, ml, variant, batch)}
+
+
+def probe_card_vs_cpu(device, refs: "CpuReferences"):
+    """15c, started: the held-out batch at st2_reduced_config, B=2, made on
+    the card; the CPU's `probe_eval` of each of PROBE_CPU_VARIANTS queued in
+    `refs`. Returns the gate: the card's evals (and the control), then each
+    metric against the CPU's within ST1_TOL_TERM."""
+    from e3dge_torch.tools import convergence_probe as cp
+
+    cfg = st2_reduced_config()
+    with tf32_off():
+        model = cp.build("base", cfg, device, SEED)[0]
+        data = probe_pairs(model, PROBE_CPU_BATCH)
+        del model
+    jobs = {v: refs.add("probe_eval", cfg, "cpu", data, v) for v in PROBE_CPU_VARIANTS}
+
+    def gate() -> dict:
+        gaps = {}
+        with tf32_off():
+            card = {v: probe_eval(cfg, device, data, v, control=v == "refweight") for v in PROBE_CPU_VARIANTS}
+        control = card["refweight"]["control"]
+        card["refweight"] = card["refweight"]["metrics"]
+        for v in PROBE_CPU_VARIANTS:
+            cpu = refs.result(jobs[v])
+            gaps[v] = probe_metric_gap(card[v], cpu)
+            log(f"  [15c] {v}: card " + ", ".join(f"{k} {card[v][k]:.6g}" for k in cp.METRICS)
+                + "; CPU " + ", ".join(f"{k} {cpu[k]:.6g}" for k in cp.METRICS))
+            if v == "refweight":
+                gaps["control"] = probe_metric_gap(control, cpu)
+        lt_gate("15c held_out_metrics", max(gaps[v] for v in PROBE_CPU_VARIANTS), ST1_TOL_TERM, gaps["control"])
+        return gaps
+
+    return gate
+
+
+def probe_run(variant: str, model, ml, state, iters: int, draw, eval_batch, note: str = "") -> dict:
+    """cp.run_variant with an eval at its start and at its end, its field
+    launches counted (reset before, read after) and held to PROBE_LAUNCHES."""
+    from e3dge_torch.tools import convergence_probe as cp
+
+    run, counts, split = counted_split(lambda: cp.run_variant(
+        variant, model, ml, state, iters, iters, ST2_BATCH, SEED, draw_batch=draw, eval_batch=eval_batch,
+        log=lambda s: log(f"  {note}{s}")))
+    per_iter, per_eval = PROBE_LAUNCHES[variant]
+    want = iters * per_iter + 2 * per_eval
+    if counts["siren_field_full"] != want or counts["siren_field_tex"] or split[("siren_field_full", "highest")] != want:
+        raise AssertionError(f"15 {variant}: {iters} iterations and 2 evals launched {counts} ({split_text(split)}), "
+                             f"expected {want} siren_field_full in highest")
+    if run["launches"] != {"per_iter": per_iter, "per_eval": per_eval}:
+        raise AssertionError(f"15 {variant}: launches {run['launches']}, expected {per_iter} / {per_eval}")
+    return run
+
+
+def run_probe(device) -> dict:
+    """Phase 15: a. the base variant at full width: iteration 0's identity
+    (control: the texture head's last layer seeded), PROBE_K iterations, the verdict gate
+    (control: the trained texture head zeroed), ms per iteration and per
+    eval, launches, device busy share, peak memory; b. refweight and texture
+    for PROBE_SHORT_ITERS iterations each beside base's first ones: the
+    three variants equal at iteration 0, l2_global_full equal after training
+    (E0's statistics do not see E1) within RESUME_FACTOR x the spread of a
+    same-seed base rerun (control: another training seed), each variant's
+    ms per iteration over PROBE_WARM_ITERS warm ones, the new launch shapes
+    against the plain field and timed; c. held_out_metrics card vs CPU
+    (`probe_card_vs_cpu`, its CPU jobs in a child the phase starts first).
+    Returns the launches per iteration and per eval, the shapes and the
+    figures."""
+    from e3dge_torch.config import stage2_config
+    from e3dge_torch.tools import convergence_probe as cp
+    from e3dge_torch.training import steps
+    from e3dge_torch.training.train import stream_generator
+
+    t_phase = time.perf_counter()
+    refs = CpuReferences("15")
+    cpu_gate = probe_card_vs_cpu(device, refs)
+    refs.start()
+    cfg = stage2_config()
+
+    def at() -> str:
+        return f"(at {time.perf_counter() - t_phase:.1f} s into the phase)"
+
+    shapes = {}
+    for label, n, sft in probe_kernel_cases():
+        shapes[label] = check_and_time_full(label, ST2_BATCH, n, sft, "highest", device)
+        shapes[label].update(entry="siren_field_full", precision="highest", batch=ST2_BATCH, n=n, sft=sft)
+
+    def stream(model, seed):
+        """Training batches from the TRAIN_STREAM generator under seed."""
+        gen = stream_generator(device, seed, *cp.TRAIN_STREAM)
+        return lambda i: cp.draw_pairs(model, ST2_BATCH, gen)
+
+    def warm_ms(variant, model, ml, state, draw) -> float:
+        """ms per iteration of PROBE_WARM_ITERS more cycle steps, each with
+        its draw, as `run_variant` times them."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(PROBE_WARM_ITERS):
+            cp.train_step(model, ml, state, variant, draw(i))
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / PROBE_WARM_ITERS
+
+    # a. the base variant
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, ml, state = cp.build("base", cfg, device, SEED)
+    build_s = time.perf_counter() - t0
+    pristine = {k: v.clone() for k, v in model.state_dict().items()}  # refweight's and the control's start
+    held_out = cp.held_out_batch(model, SEED)
+    draw = stream(model, SEED)
+    first = probe_run("base", model, ml, state, PROBE_SHORT_ITERS, draw, held_out)
+    m0, m2 = first["curve"]
+    with tex_head(model, "last"):
+        seeded = cp.held_out_metrics(model, ml, "base", held_out)
+    log(f"  [15a] base built in {build_s:.1f} s; iteration 0: l2_local_full {m0['l2_local_full']:.6f}, l2_global_full "
+        f"{m0['l2_global_full']:.6f} {at()}")
+    lt_gate("15a iteration 0", probe_identity(m0), PROBE_ID_TOL, probe_identity(seeded),
+            "l2_local_full vs l2_global_full (control: the texture head's last layer seeded)")
+    rest = probe_run("base", model, ml, state, PROBE_K - PROBE_SHORT_ITERS, draw, held_out,
+                     f"iterations counted from {PROBE_SHORT_ITERS}: ")
+    mk = rest["curve"][-1]
+    with tex_head(model, "zero"):
+        zeroed = cp.held_out_metrics(model, ml, "base", held_out)
+    margins, control = probe_margins(m0, mk), probe_margins(m0, zeroed)
+    ok = probe_verdict_holds(margins)
+    log(f"  [15a] iteration {PROBE_K}: l2_local_full {mk['l2_local_full']:.6f}, l2_global_full "
+        f"{mk['l2_global_full']:.6f}; margins " + ", ".join(f"{k} {v:.4f}" for k, v in margins.items())
+        + f" [each > {PROBE_MARGIN:g}] {'ok' if ok else 'FAIL'}; control (texture head zeroed) "
+        + ", ".join(f"{k} {v:.4f}" for k, v in control.items())
+        + f": {'fails' if not probe_verdict_holds(control) else 'PASSES'}")
+    if not ok:
+        raise AssertionError(f"15a: E1 does not beat its start and the global baseline by {PROBE_MARGIN} after "
+                             f"{PROBE_K} iterations: {margins}")
+    if probe_verdict_holds(control):
+        raise AssertionError("15a: the verdict gate passes with the texture modulation head zeroed")
+    ms_iter, ms_eval = rest["curve"][-1]["ms_per_iter"], float(np.mean([r["eval_ms"] for r in rest["curve"]]))
+    log(f"  [15a] the verdict gate held {at()}")
+    kernel_us, n_launch = device_kernels(lambda: cp.train_step(model, ml, state, "base", draw(0)), 1)
+    busy = sum(kernel_us.values()) / 1e3
+    field = sum(us for name, us in kernel_us.items() if "siren_field" in name) / 1e3
+    peak = peak_gib()
+    log(f"  [15a] base: {ms_iter:.2f} ms per iteration, {ms_eval:.2f} ms per eval; device busy {busy:.3f} ms per "
+        f"iteration in {sum(n_launch.values())} launches (field kernel {field:.3f} ms), busy share "
+        f"{busy / ms_iter:.3f}; peak memory {peak:.2f} GiB {at()}")
+    figures = {"base": {"ms_per_iter": ms_iter, "ms_per_eval": ms_eval, "busy_ms": busy, "field_ms": field,
+                        "busy_share": busy / ms_iter, "peak_gib": peak,
+                        "margins": margins, "control": control, "identity": probe_identity(m0)}}
+    # b. refweight and texture beside base's first iterations; the limit: the spread of base rerun on
+    # the same seed; the control: base on another training seed. refweight and the base reruns
+    # restart base's build (the same config) from its snapshot.
+    short = {"base": (m0, m2)}
+    for v, seed in (("refweight", SEED), ("base, again", SEED), ("base, seed + 1", SEED + 1), ("texture", SEED)):
+        variant = v.split(",")[0]
+        if variant == "texture":
+            del model, ml, state, pristine
+            torch.cuda.empty_cache()
+            model, ml, state = cp.build(variant, cfg, device, SEED)
+        else:
+            model.load_state_dict(pristine)
+            state = steps.create_train_state(model, steps.STAGE22_TRAINABLE, cp.LR)
+        draw = stream(model, seed)
+        run = probe_run(variant, model, ml, state, PROBE_SHORT_ITERS, draw, held_out)
+        short[v] = tuple(run["curve"])
+        if variant != "base":
+            figures[v] = {"ms_per_iter": warm_ms(variant, model, ml, state, draw),
+                          "ms_per_eval": run["curve"][-1]["eval_ms"]}
+    del model, ml, state
+    torch.cuda.empty_cache()
+    at0 = max(probe_metric_gap(short[v][0], m0) for v in ("refweight", "texture"))
+    spread = probe_metric_gap(short["base, again"][1], m2, ("l2_global_full",))
+    limit = max(RESUME_FACTOR * spread, RESUME_FLOOR)
+    after = max(probe_metric_gap(short[v][1], m2, ("l2_global_full",)) for v in ("refweight", "texture"))
+    log(f"  [15b] iteration 0, the three variants' metrics: largest relative gap {at0:.3e} [limit {PROBE_ID_TOL:g}]")
+    if not at0 <= PROBE_ID_TOL:
+        raise AssertionError(f"15b: the variants differ at iteration 0 ({at0:.3e})")
+    lt_gate(f"15b after {PROBE_SHORT_ITERS} iterations", after, limit,
+            probe_metric_gap(short["base, seed + 1"][1], m2, ("l2_global_full",)),
+            f"l2_global_full across variants, limit max({RESUME_FACTOR:g}x the same-seed rerun's {spread:.3e}, "
+            f"{RESUME_FLOOR:g}) (control: base on another training seed)")
+    figures["15b"] = {"spread": spread, "limit": limit, "gap": after}
+    for v in ("refweight", "texture"):
+        log(f"  [15b] {v}: {figures[v]['ms_per_iter']:.2f} ms per iteration over {PROBE_WARM_ITERS} warm ones, "
+            f"{figures[v]['ms_per_eval']:.2f} ms per eval (base {ms_iter:.2f} / {ms_eval:.2f})")
+
+    log(f"[15c] held_out_metrics card vs CPU at st2_reduced_config, B={PROBE_CPU_BATCH} {at()}")
+    figures["card_vs_cpu"] = cpu_gate()
+    log(f"  phase 15: {time.perf_counter() - t_phase:.1f} s")
+    launches = {}
+    for v, (per_iter, per_eval) in PROBE_LAUNCHES.items():
+        launches[f"probe_iteration_{v}"], launches[f"probe_eval_{v}"] = per_iter, per_eval
+    return {"launches": launches, "shapes": shapes, "figures": figures}
+
+
 def read_video(path: str) -> tuple[int, tuple]:
     """(frames, the first frame's shape) of a video `write_video` wrote (an
     .mp4 by OpenCV, else a .gif by Pillow)."""
@@ -4321,6 +4656,11 @@ def main() -> int:
         p14 = long_tail_gates(lt_state)
     ev_shapes += [{"label": label, **r} for label, r in p14["shapes"].items()]
 
+    phase("15")
+    log(f"[15] the stage-2 convergence probe at full width (at {time.perf_counter() - t_start:.1f} s)")
+    p15 = run_probe(device)
+    ev_shapes += [{"label": label, **r} for label, r in p15["shapes"].items()]
+
     def p13_launches(entry, precision):
         """Phase 13's launches of one entry in one precision, per step or
         iteration of each of its training paths and per raw-density call."""
@@ -4389,7 +4729,7 @@ def main() -> int:
                              **trainer_launches("siren_field_full", "highest"),
                              **dp_launches("siren_field_full", "highest"),
                              **p13_launches("siren_field_full", "highest"),
-                             **p14["launches"]},
+                             **p14["launches"], **p15["launches"]},
         "launches_stage2": st2["launches"]["siren_field_full"],
     })
     # the texture entry in f32, on the stage-2 path (the D's fake producer):
@@ -4410,7 +4750,7 @@ def main() -> int:
                              **trainer_launches("siren_field_tex", "highest"),
                              **dp_launches("siren_field_tex", "highest"),
                              **p13_launches("siren_field_tex", "highest"),
-                             "long_tail_secant": 0},
+                             "long_tail_secant": 0, **{k: 0 for k in p15["launches"]}},
     })
     log(f"image2image ms per inversion (flagship bf16, B=1): {inv_ms:.4f}; all phases {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(wall_table()))
@@ -4423,10 +4763,10 @@ def main() -> int:
 
 def phase_only(phase: str) -> int:
     """Phases 1 and 2, the one-rank reference of 11b and 12
-    (`rank_reference`) and phase 11 or 12 alone, or phases 1, 2 and 13 or
-    14, for iterating on it: `python3 chip_smoke.py --phase 11` (or 12, 13,
-    14; 13 without phases 7 and 8, so without their f32 figures beside its
-    own)."""
+    (`rank_reference`) and phase 11 or 12 alone, or phases 1, 2 and 13, 14
+    or 15, for iterating on it: `python3 chip_smoke.py --phase 11` (or 12,
+    13, 14, 15; 13 without phases 7 and 8, so without their f32 figures
+    beside its own)."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -4440,6 +4780,14 @@ def phase_only(phase: str) -> int:
     sf.build_library()
     # TF32 off, as phase 3 leaves it for the phases after it
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    if phase == "15":
+        log("[15] phase 15 alone")
+        out = run_probe(device)
+        print(json.dumps({"phase15": {k: out[k] for k in ("launches", "figures")},
+                          "shapes": {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
+                                     for k, v in out["shapes"].items()}}))
+        print(smi)
+        return 0
     if phase == "14":
         log("[14] phase 14 alone")
         with tempfile.TemporaryDirectory(prefix="e3dge_long_tail_") as root:
@@ -4475,7 +4823,7 @@ if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--cpu-reference":
         sys.exit(cpu_reference_child(sys.argv[2]))
     try:
-        if len(sys.argv) == 3 and sys.argv[1] == "--phase" and sys.argv[2] in ("11", "12", "13", "14"):
+        if len(sys.argv) == 3 and sys.argv[1] == "--phase" and sys.argv[2] in ("11", "12", "13", "14", "15"):
             sys.exit(phase_only(sys.argv[2]))
         sys.exit(main())
     finally:

@@ -7,7 +7,8 @@ holds ranks to one rank (11a, `dp_scaling.py`, `sp_scaling.py`) takes them
 from three such runs (`rank_limits`); phase 10b's runs, shared as the
 one-rank reference of 11b and 12, keep those limits; a CPU reference in a
 child process (`CpuReferences`) gives the in-process numbers; the per-phase
-wall table; and phase 14's gap helpers."""
+wall table; phase 14's gap helpers; and phase 15's gates on the probe's
+tiny CPU run: the iteration-0 identity, the verdict, each with its control."""
 
 import json
 import os
@@ -230,3 +231,61 @@ def test_run_gap_reads_each_runs_checkpoint_once_while_it_is_unchanged(tmp_path)
     os.utime(ck, ns=(1, 1))  # the checkpoint rewritten
     cs.run_gap(others[0], ref, 1, groups)
     assert reads.count("ref") == 2
+
+
+@pytest.fixture(scope="module")
+def tiny_probe():
+    """The probe's base variant at tiny_full_config on the CPU, its held-out
+    batch, and its curve over 4 iterations of B=2 (evals at 0 and 4)."""
+    from e3dge_torch import config as tc
+    from e3dge_torch.tools import convergence_probe as cp
+
+    model, ml, state = cp.build("base", tc.tiny_full_config(), "cpu", seed=0)
+    batch = cp.held_out_batch(model, seed=0)
+    m0 = cp.held_out_metrics(model, ml, "base", batch)
+    run = cp.run_variant("base", model, ml, state, 4, 4, 2, eval_batch=batch, log=lambda s: None)
+    return model, ml, batch, m0, run["curve"]
+
+
+def test_the_probes_iteration_zero_identity_fails_with_the_head_seeded(tiny_probe):
+    """Phase 15a's first gate on CPU tensors: at iteration 0 E1's
+    modulations are a no-op, so l2_local_full is l2_global_full within
+    PROBE_ID_TOL; with the texture head's last layer seeded (the control)
+    it is not, and the head is restored after the block."""
+    from e3dge_torch import config as tc
+    from e3dge_torch.tools import convergence_probe as cp
+
+    model, ml, _ = cp.build("base", tc.tiny_full_config(), "cpu", seed=0)
+    batch = tiny_probe[2]
+    assert cs.probe_identity(cp.held_out_metrics(model, ml, "base", batch)) <= cs.PROBE_ID_TOL
+    with cs.tex_head(model, "last"):
+        assert cs.probe_identity(cp.held_out_metrics(model, ml, "base", batch)) > cs.PROBE_ID_TOL
+    assert cs.probe_identity(cp.held_out_metrics(model, ml, "base", batch)) <= cs.PROBE_ID_TOL
+
+
+def test_the_probes_verdict_gate_fails_with_the_trained_heads_zeroed(tiny_probe):
+    """Phase 15a's verdict gate on CPU tensors: after 4 tiny iterations both
+    verdicts hold by more than PROBE_MARGIN; the trained state with the
+    texture modulation head zeroed renders the global baseline again and
+    fails it."""
+    from e3dge_torch.tools import convergence_probe as cp
+
+    model, ml, batch, m0, curve = tiny_probe
+    assert curve[0] == {**m0, "iter": 0, "ms_per_iter": None, "eval_ms": curve[0]["eval_ms"]}
+    margins = cs.probe_margins(m0, curve[-1])
+    assert cs.probe_verdict_holds(margins), margins
+    with cs.tex_head(model, "zero"):
+        zeroed = cp.held_out_metrics(model, ml, "base", batch)
+    assert cs.probe_identity(zeroed) <= cs.PROBE_ID_TOL
+    assert not cs.probe_verdict_holds(cs.probe_margins(m0, zeroed))
+
+
+def test_the_probes_metric_gap_reads_a_vanishing_metric_against_phase_8s_floor():
+    """15b's and 15c's gap: the largest relative gap over the four metrics,
+    a metric below 1e-6 (the seeded GAN's near-identical thumbs) read
+    against 1e-6, as phase 8 reads its terms."""
+    ref = {"l2_local": 2e-7, "l2_global": 4e-11, "l2_local_full": 1.0, "l2_global_full": 2.0}
+    assert cs.probe_metric_gap(ref, ref) == 0.0
+    assert cs.probe_metric_gap({**ref, "l2_global_full": 2.002}, ref) == pytest.approx(1e-3)
+    assert cs.probe_metric_gap({**ref, "l2_local": 3e-7}, ref) == pytest.approx(0.1)
+    assert cs.probe_metric_gap({**ref, "l2_local": 3e-7}, ref, ("l2_global_full",)) == 0.0

@@ -2,8 +2,9 @@
 unimportable, every module of `e3dge_torch` imports (walked by pkgutil), as
 do `chip_smoke.py`, `dp_scaling.py`, `sp_scaling.py` and `rank_spread.py`,
 the trainer's, the eval CLI's and the offline tools' (`python -m
-e3dge_torch.tools.calc_losses`, `.gallery_video`) parsers run, and the
-reference flags build a config (`utils/options_compat.py`)."""
+e3dge_torch.tools.calc_losses`, `.gallery_video`, `.convergence_probe`, with
+the probe's JAX defaults) parsers run, and the reference flags build a config
+(`utils/options_compat.py`)."""
 
 import subprocess
 import sys
@@ -39,13 +40,16 @@ try:
     train.main(["--help"])
 except SystemExit as e:
     assert e.code == 0, e.code
-from e3dge_torch.tools import calc_losses, gallery_video
+from e3dge_torch.tools import calc_losses, convergence_probe, gallery_video
 
-for cli in (calc_losses, gallery_video):
+for cli in (calc_losses, gallery_video, convergence_probe):
     try:
         cli.main(["--help"])
     except SystemExit as e:
         assert e.code == 0, e.code
+probe = convergence_probe.parse_args([])
+assert (probe.iters, probe.eval_every, probe.batch, probe.variants) == (300, 50, 4, "base,refweight,texture")
+assert probe.device is None and not probe.tiny and probe.out.startswith("runs/")
 args = teval.parse_args(["--data", "d", "--mode", "now"])
 assert args.mode == "now" and args.ckpt is None
 from e3dge_torch.utils.options_compat import config_from_reference_flags
@@ -64,5 +68,6 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "--resume" in proc.stdout and "--sp" in proc.stdout and "imported" in proc.stdout
     assert "--gt-path" in proc.stdout and "--bounce" in proc.stdout  # the offline tools' CLIs
+    assert "--eval-every" in proc.stdout and "--variants" in proc.stdout  # the convergence probe's
     n = int(proc.stdout.split("imported ")[1].split()[0])
     assert n >= len(list((REPO / "e3dge_torch").rglob("*.py"))) - 1  # every module but the package itself
