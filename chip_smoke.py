@@ -256,20 +256,6 @@ KERNEL_ENTRIES = {
 # pipeline; an image whose std falls below the floor is taken as degenerate.
 TOL_BF16_VS_F32_REL = 0.05
 MIN_IMAGE_STD = 1e-2
-# top-level stages of image2image, timed with CUDA events at their forward hooks
-STAGES = (
-    "encoder",
-    "volume_discriminator",
-    "generator.renderer",
-    "local.residual_conv",
-    "local.depth_conv",
-    "local.image_filter",
-    "grid_align",
-    "fuse_sft_block",
-    "local.local_feat_to_tex_modulations_linear",
-    "generator.decoder",
-)
-
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -844,68 +830,59 @@ def run_flagship(device):
     log(f"  image2image flagship bf16, B=1, 256^2 -> 1024^2: median {ms:.2f} ms per inversion "
         f"({1e3 / ms:.3f} inversions/s) over 20 calls, min {lo:.2f}, max {hi:.2f}; "
         f"peak memory {peak_gib():.2f} GiB")
-    profile_flagship(model, call, ms)
+    profile_flagship(call, ms)
     del out
     torch.cuda.empty_cache()
     return counts, ms, img, (model, images, ml, noise)
 
 
-def device_kernels(call, iters: int) -> tuple[dict, dict]:
-    """Device time (us) and launches by kernel name over `iters` calls, from
-    torch.profiler's CUDA events. User annotations on the device timeline (the
-    optimizer's `Optimizer.step#...` range) span kernels, so they are left
-    out."""
+def device_trace(call, iters: int) -> tuple[list, list]:
+    """`e3dge_torch.utils.trace.read` of `iters` calls under torch.profiler:
+    the device operations with the host time of their launch, and the host's
+    operators with the port's spans among them."""
     from torch.profiler import ProfilerActivity, profile
+
+    from e3dge_torch.utils import trace
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             call()
         torch.cuda.synchronize()
+    return trace.read(prof)
+
+
+def by_kernel(ops) -> tuple[dict, dict]:
+    """Device time (us) and launches by kernel name of `device_trace`'s ops."""
     kernel_us, launches = defaultdict(float), defaultdict(int)
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA and not getattr(ev, "is_user_annotation", False):
-            kernel_us[ev.name] += ev.time_range.elapsed_us()
-            launches[ev.name] += 1
+    for name, start, end, _ in ops:
+        kernel_us[name] += (end - start) / 1e3
+        launches[name] += 1
     return kernel_us, launches
 
 
-def profile_flagship(model, call, wall_ms: float, iters: int = 5) -> None:
-    """Where one inversion's time goes: per-stage CUDA-event ms at the top
-    modules' forward hooks (host gaps inside a stage included), the device
-    busy ms and its share of the unprofiled wall time (torch.profiler), and the
-    top device kernels by total time."""
-    events = defaultdict(list)
+def device_kernels(call, iters: int) -> tuple[dict, dict]:
+    """Device time (us) and launches by kernel name over `iters` calls."""
+    return by_kernel(device_trace(call, iters)[0])
 
-    def hooks(name):
-        def pre(_mod, _inp):
-            events[name].append([torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)])
-            events[name][-1][0].record()
 
-        def post(_mod, _inp, _out):
-            events[name][-1][1].record()
+def profile_flagship(call, wall_ms: float, iters: int = 5) -> None:
+    """Where one inversion's time goes, from one profiled run of `iters`
+    calls: per span of the port (`e3dge_torch.utils.trace`; "-" outside every
+    span) its own device ms and launches and the ms in which it was the
+    innermost open span and the device idle, the device busy ms and its share
+    of the unprofiled wall time, and the top device kernels by total time."""
+    from e3dge_torch.utils.trace import Layers
 
-        return pre, post
-
-    handles = []
-    for name in STAGES:
-        pre, post = hooks(name)
-        mod = model.get_submodule(name)
-        handles += [mod.register_forward_pre_hook(pre), mod.register_forward_hook(post)]
-    for _ in range(iters):
-        call()
-    torch.cuda.synchronize()
-    for h in handles:
-        h.remove()
-    staged = 0.0
-    for name in STAGES:
-        ms = sum(s.elapsed_time(e) for s, e in events[name]) / iters
-        staged += ms
-        log(f"  stage {name:45s} {ms:8.3f} ms  ({len(events[name]) // iters} forward(s) per inversion)")
-
-    kernel_us, launches = device_kernels(call, iters)
+    ops, host = device_trace(call, iters)
+    rows = Layers(ops, host).table()
+    for name, (dev_ns, n, wait_ns) in rows.items():
+        log(f"  span {name or '-':12s} {dev_ns / iters / 1e6:8.3f} ms own device, {n / iters:7.1f} launches, "
+            f"host wait {wait_ns / iters / 1e6:8.3f} ms")
+    kernel_us, launches = by_kernel(ops)
     busy_ms = sum(kernel_us.values()) / iters / 1e3
+    spanned = sum(dev_ns for name, (dev_ns, _, _) in rows.items() if name) / iters / 1e6
     log(f"  device busy {busy_ms:.3f} ms per inversion in {sum(launches.values()) // iters} launches; "
-        f"busy share {busy_ms / wall_ms:.3f} of the {wall_ms:.2f} ms median wall; stages sum {staged:.3f} ms")
+        f"busy share {busy_ms / wall_ms:.3f} of the {wall_ms:.2f} ms median wall; spans' own {spanned:.3f} ms")
     for name, us in sorted(kernel_us.items(), key=lambda kv: -kv[1])[:15]:
         log(f"  kernel {us / iters / 1e3:8.4f} ms {launches[name] // iters:5d}x  {name[:100]}")
 

@@ -50,6 +50,7 @@ from e3dge_torch.ops import adaptive_avg_pool, pos_encoding, upsample_nearest
 from e3dge_torch.parallel import mesh
 from e3dge_torch.render.camera import CameraParams, camera_params_from_angles
 from e3dge_torch.utils.device import resolve_device
+from e3dge_torch.utils.trace import span
 
 
 class LatentMeans(NamedTuple):
@@ -126,22 +127,24 @@ class E3DGE(nn.Module):
         """E0 forward; offsets + mean latents -> the predicted W+ pair (f32).
         train: batch-statistics BatchNorm with the running-stat update, grad kept."""
         c = self.cfg
-        x = adaptive_avg_pool(images, c.encoder.input_res).to(self.compute_dtype)
-        with self._mode(train):
-            out = self.encoder(x, return_featmap=True)
-        off_r, off_d = out["pred_latents"]
-        out["pred_latents"] = [mean_latents.renderer + off_r.float(), mean_latents.decoder + off_d.float()]
+        with span("e0.encoder"):
+            x = adaptive_avg_pool(images, c.encoder.input_res).to(self.compute_dtype)
+            with self._mode(train):
+                out = self.encoder(x, return_featmap=True)
+            off_r, off_d = out["pred_latents"]
+            out["pred_latents"] = [mean_latents.renderer + off_r.float(), mean_latents.decoder + off_d.float()]
         return out
 
     def image2camsettings(self, images: torch.Tensor) -> CameraParams:
         """Pose from the volume D's viewpoint head, in the compute dtype."""
         c = self.cfg
-        thumb = adaptive_avg_pool(images, c.renderer.out_im_res).to(self.compute_dtype)
-        _, locations = self.volume_discriminator(thumb)
-        locations = locations.float()
-        return camera_params_from_angles(
-            locations[:, 0], locations[:, 1], c.renderer.out_im_res, c.camera.fov_ang, c.camera.dist_radius
-        )
+        with span("e0.pose"):
+            thumb = adaptive_avg_pool(images, c.renderer.out_im_res).to(self.compute_dtype)
+            _, locations = self.volume_discriminator(thumb)
+            locations = locations.float()
+            return camera_params_from_angles(
+                locations[:, 0], locations[:, 1], c.renderer.out_im_res, c.camera.fov_ang, c.camera.dist_radius
+            )
 
     # -------------------------------------------------------------------- render
 
@@ -253,60 +256,61 @@ class E3DGE(nn.Module):
             que_pts = que_info["points"]
             B, H, W, S, _ = que_pts.shape
 
-            # 4 (hoisted). ADA 2D alignment at the query view + the hourglass filter on it
-            dt = self.compute_dtype
-            que_thumb_256 = upsample_nearest(que_info["gen_thumb_imgs"], c.pifu.load_size)
-            aligned_res = self.grid_align(torch.cat([ref_info["orig_res_gt"], que_thumb_256], dim=1).to(dt)).float()
-            que_depth = que_info["depth"][..., 0].permute(0, 3, 1, 2)
-            que_depth_256 = upsample_nearest(que_depth, c.pifu.load_size)
-            que_feat = self.local.filter(aligned_res.to(dt), que_depth_256.to(dt))
+            with span("e1.fusion"):
+                # 4 (hoisted). ADA 2D alignment at the query view + the hourglass filter on it
+                dt = self.compute_dtype
+                que_thumb_256 = upsample_nearest(que_info["gen_thumb_imgs"], c.pifu.load_size)
+                aligned_res = self.grid_align(torch.cat([ref_info["orig_res_gt"], que_thumb_256], dim=1).to(dt)).float()
+                que_depth = que_info["depth"][..., 0].permute(0, 3, 1, 2)
+                que_depth_256 = upsample_nearest(que_depth, c.pifu.load_size)
+                que_feat = self.local.filter(aligned_res.to(dt), que_depth_256.to(dt))
 
-            # 2. 3D-projected ref features (at the REF calibs) and 4b. query features
-            # (at the QUE calibs). The que-side lookup is ray-constant: every sample
-            # of a ray projects to the ray's own pixel in the camera that cast it,
-            # so it runs on the HW sample-0 points and broadcasts over S.
-            pts_ray = que_pts[:, :, :, 0, :].reshape(B, -1, 3).permute(0, 2, 1)
-            if same_view:
-                # ref IS the query camera: both lookups share one projection
-                proj = self.local.query_pair(ref_info["ref_view_aligned_feat"], que_feat, pts_ray, ref_calibs)
-                fa = proj["feats_a"].permute(0, 2, 1).reshape(B, H, W, 1, -1)
-                fb = proj["feats_b"].permute(0, 2, 1).reshape(B, H, W, 1, -1)
-                feature_3d = fa.expand(B, H, W, S, fa.shape[-1])
-                feature_2d = fb.expand(B, H, W, S, fb.shape[-1])
-            else:
-                # the ref-side lookup is per point: que points projected into the REF view
-                pts_all = que_pts.reshape(B, -1, 3).permute(0, 2, 1)
-                proj = self.local.query(ref_info["ref_view_aligned_feat"], pts_all, ref_calibs)
-                q2 = self.local.query(que_feat, pts_ray, que_camera.calibs)
-                f2 = q2["feats"].permute(0, 2, 1).reshape(B, H, W, 1, -1)
-                feature_2d = f2.expand(B, H, W, S, f2.shape[-1])
-                feature_3d = proj["feats"].permute(0, 2, 1).reshape(B, H, W, S, -1)
+                # 2. 3D-projected ref features (at the REF calibs) and 4b. query features
+                # (at the QUE calibs). The que-side lookup is ray-constant: every sample
+                # of a ray projects to the ray's own pixel in the camera that cast it,
+                # so it runs on the HW sample-0 points and broadcasts over S.
+                pts_ray = que_pts[:, :, :, 0, :].reshape(B, -1, 3).permute(0, 2, 1)
+                if same_view:
+                    # ref IS the query camera: both lookups share one projection
+                    proj = self.local.query_pair(ref_info["ref_view_aligned_feat"], que_feat, pts_ray, ref_calibs)
+                    fa = proj["feats_a"].permute(0, 2, 1).reshape(B, H, W, 1, -1)
+                    fb = proj["feats_b"].permute(0, 2, 1).reshape(B, H, W, 1, -1)
+                    feature_3d = fa.expand(B, H, W, S, fa.shape[-1])
+                    feature_2d = fb.expand(B, H, W, S, fb.shape[-1])
+                else:
+                    # the ref-side lookup is per point: que points projected into the REF view
+                    pts_all = que_pts.reshape(B, -1, 3).permute(0, 2, 1)
+                    proj = self.local.query(ref_info["ref_view_aligned_feat"], pts_all, ref_calibs)
+                    q2 = self.local.query(que_feat, pts_ray, que_camera.calibs)
+                    f2 = q2["feats"].permute(0, 2, 1).reshape(B, H, W, 1, -1)
+                    feature_2d = f2.expand(B, H, W, S, f2.shape[-1])
+                    feature_3d = proj["feats"].permute(0, 2, 1).reshape(B, H, W, S, -1)
 
-            ref_hit_prob = None
-            if use_ref_view_weight:
-                ref_hit_prob = self._ref_view_weight(ref_info, que_pts)
-                in_img = proj["in_img"]
-                in_img = in_img.reshape(B, H, W, 1 if in_img.shape[1] == H * W else S, 1)
-                ref_hit_prob = ref_hit_prob * in_img.to(feature_3d.dtype)
-                feature_3d = feature_3d * ref_hit_prob
+                ref_hit_prob = None
+                if use_ref_view_weight:
+                    ref_hit_prob = self._ref_view_weight(ref_info, que_pts)
+                    in_img = proj["in_img"]
+                    in_img = in_img.reshape(B, H, W, 1 if in_img.shape[1] == H * W else S, 1)
+                    ref_hit_prob = ref_hit_prob * in_img.to(feature_3d.dtype)
+                    feature_3d = feature_3d * ref_hit_prob
 
-            # 3. visibility: the query surface xyz projected into the ref view. At
-            # the same view each surface point reprojects to its own pixel centre,
-            # so the mask is all ones.
-            if same_view:
-                vis_mask = torch.ones(B, H, W, S, 1, device=que_pts.device, dtype=que_pts.dtype)
-            else:
-                xyz = que_info["xyz"].reshape(B, -1, 3).permute(0, 2, 1)
-                vis_mask = points_in_image(xyz, ref_calibs).reshape(B, H, W, 1, 1).to(que_pts.dtype)
-                vis_mask = vis_mask.expand(B, H, W, S, 1)
+                # 3. visibility: the query surface xyz projected into the ref view. At
+                # the same view each surface point reprojects to its own pixel centre,
+                # so the mask is all ones.
+                if same_view:
+                    vis_mask = torch.ones(B, H, W, S, 1, device=que_pts.device, dtype=que_pts.dtype)
+                else:
+                    xyz = que_info["xyz"].reshape(B, -1, 3).permute(0, 2, 1)
+                    vis_mask = points_in_image(xyz, ref_calibs).reshape(B, H, W, 1, 1).to(que_pts.dtype)
+                    vis_mask = vis_mask.expand(B, H, W, S, 1)
 
-            # 5. SFT fusion of (2D feats + visibility) into the 3D feats, + PE; the
-            # fusion path runs in the field dtype
-            fdt = self.field_dtype
-            feature_2d = torch.cat([feature_2d.to(fdt), vis_mask.to(fdt)], dim=-1)
-            fused = self.fuse_sft_block(feature_2d, feature_3d.to(fdt), w=fusion_weight)
-            pe = pos_encoding(que_pts, n_freqs=7).to(fdt)
-            alpha, beta = self.local.tex_modulations((fused, pe))
+                # 5. SFT fusion of (2D feats + visibility) into the 3D feats, + PE; the
+                # fusion path runs in the field dtype
+                fdt = self.field_dtype
+                feature_2d = torch.cat([feature_2d.to(fdt), vis_mask.to(fdt)], dim=-1)
+                fused = self.fuse_sft_block(feature_2d, feature_3d.to(fdt), w=fusion_weight)
+                pe = pos_encoding(que_pts, n_freqs=7).to(fdt)
+                alpha, beta = self.local.tex_modulations((fused, pe))
 
             # 6. modulations + the conditioned render on the query's samples
             if "raw_h" in que_info and (reuse_backbone or tail_trains):

@@ -17,6 +17,7 @@ from e3dge_torch.models.decoder import Decoder
 from e3dge_torch.models.layers import MappingLinear
 from e3dge_torch.models.volume_renderer import VolumeFeatureRenderer
 from e3dge_torch.render.camera import CameraParams
+from e3dge_torch.utils.trace import span
 
 
 class Generator(nn.Module):
@@ -72,10 +73,11 @@ class Generator(nn.Module):
         truncate = truncation < 1.0 and truncation_latent is not None
         if truncate:
             encoder_latent = truncation_latent[0] + truncation * (encoder_latent - truncation_latent[0])
-        render_out = self.renderer(
-            camera, encoder_latent, conditions=local_conditions, return_raw_h=return_raw_h,
-            z_vals=z_vals, no_force_stop=no_force_stop, train=train, generator=generator, field_dtype=field_dtype,
-        )
+        with span("g0.render"):
+            render_out = self.renderer(
+                camera, encoder_latent, conditions=local_conditions, return_raw_h=return_raw_h,
+                z_vals=z_vals, no_force_stop=no_force_stop, train=train, generator=generator, field_dtype=field_dtype,
+            )
         render_out["styles"] = encoder_latent
         if renderer_only or not self.full_pipeline:
             render_out["gen_imgs"] = None
@@ -90,10 +92,11 @@ class Generator(nn.Module):
         dec_styles = [encoder_latent] if decoder_latent is None else [decoder_latent]
         # the decoder pyramid runs in the configured compute dtype
         dec_in = render_out["features"].to(getattr(torch, self.cfg.dtype))
-        gen_imgs, out_latent = self.decoder(
-            dec_in, dec_styles, input_is_latent=input_is_latent, noise=noise, return_latents=True,
-            generator=generator, truncation=truncation, truncation_latent=truncation_latent,
-        )
+        with span("g1.decoder"):
+            gen_imgs, out_latent = self.decoder(
+                dec_in, dec_styles, input_is_latent=input_is_latent, noise=noise, return_latents=True,
+                generator=generator, truncation=truncation, truncation_latent=truncation_latent,
+            )
         render_out["gen_imgs"] = gen_imgs.float()
         render_out["decoder_latent"] = out_latent
         return render_out
@@ -110,7 +113,8 @@ class Generator(nn.Module):
         (`VolumeFeatureRenderer.render_from_backbone`) + the decoder."""
         encoder_latent = styles[0]
         decoder_latent = styles[1] if len(styles) > 1 else None
-        render_out = self.renderer.render_from_backbone(cached, encoder_latent, local_conditions)
+        with span("g0.render"):
+            render_out = self.renderer.render_from_backbone(cached, encoder_latent, local_conditions)
         render_out["styles"] = encoder_latent
         if not self.full_pipeline:
             render_out["gen_imgs"] = None

@@ -24,6 +24,7 @@ from e3dge_torch.models.layers import EqualLinear
 from e3dge_torch.models.pifu.hourglass import HGFilter
 from e3dge_torch.ops import grid_sample
 from e3dge_torch.render.camera import project_points
+from e3dge_torch.utils.trace import span
 
 
 class InstanceNorm(nn.InstanceNorm2d):
@@ -174,7 +175,8 @@ class LocalFeatureNet(nn.Module):
         feats = self.residual_conv(residual_images)
         if depth_feat is not None:
             feats = torch.cat([feats, self.depth_conv(depth_feat)], dim=1)
-        return self.image_filter(feats)
+        with span("e1.filter"):
+            return self.image_filter(feats)
 
     def query(self, im_feat, points, calibs) -> dict:
         return query_features(im_feat, points, calibs, self.cfg.load_size, self.cfg.z_size)

@@ -32,6 +32,7 @@ from e3dge_torch.training import losses as L
 from e3dge_torch.training.data import EvalImageDataset
 from e3dge_torch.utils import editing, image_io, mesh
 from e3dge_torch.utils.device import resolve_device
+from e3dge_torch.utils.trace import span
 
 NOISE_SEED = 0
 
@@ -111,18 +112,19 @@ class Runner:
         images (and noise) are the global batch on every rank: each rank
         inverts its rows, and `gen_imgs` comes back for the whole batch on
         every rank (the other outputs are the rank's rows)."""
-        images = images.to(self.device)
-        noise = self._noise(noise, images.shape[0])
-        w = self.world
-        if w is not None and w.size > 1:
-            images, noise = dp.shard_rows(images, w), [dp.shard_rows(n, w) for n in noise]
-        if self.cfg.renderer.enable_local_model:
-            out = self.model.image2image(images, self.mean_latents, noise=noise)
-            rec = out["res_render_out"]
-        else:
-            out = rec = self.model.image2image_global(images, self.mean_latents, noise=noise)
-        if w is not None and w.size > 1:
-            rec["gen_imgs"] = dp.gather_rows(rec["gen_imgs"], w)
+        with span("inversion"):
+            images = images.to(self.device)
+            noise = self._noise(noise, images.shape[0])
+            w = self.world
+            if w is not None and w.size > 1:
+                images, noise = dp.shard_rows(images, w), [dp.shard_rows(n, w) for n in noise]
+            if self.cfg.renderer.enable_local_model:
+                out = self.model.image2image(images, self.mean_latents, noise=noise)
+                rec = out["res_render_out"]
+            else:
+                out = rec = self.model.image2image_global(images, self.mean_latents, noise=noise)
+            if w is not None and w.size > 1:
+                rec["gen_imgs"] = dp.gather_rows(rec["gen_imgs"], w)
         return out
 
     def encode_ref(self, images: torch.Tensor) -> dict[str, Any]:

@@ -16,6 +16,7 @@ from typing import Iterator, Sequence
 import numpy as np
 
 from e3dge_torch.parallel import mesh
+from e3dge_torch.utils.trace import span
 
 IMG_EXTS = {".png", ".jpg", ".jpeg", ".webp", ".bmp"}
 
@@ -107,12 +108,14 @@ class ImageFolderDataset:
         while True:
             order = order_rng.permutation(len(self))
             for s in range(0, len(order) - batch_size + 1, batch_size):
-                rows = order[s : s + batch_size]
-                flips = self.rng.rand(batch_size) < 0.5
-                if world is not None:
-                    rows, flips = mesh.shard_rows(rows, world), mesh.shard_rows(flips, world)
-                items = [self._item(int(j), f) for j, f in zip(rows, flips)]
-                yield {k: np.stack([it[k] for it in items]) for k in items[0]}
+                with span("data.reals"):
+                    rows = order[s : s + batch_size]
+                    flips = self.rng.rand(batch_size) < 0.5
+                    if world is not None:
+                        rows, flips = mesh.shard_rows(rows, world), mesh.shard_rows(flips, world)
+                    items = [self._item(int(j), f) for j, f in zip(rows, flips)]
+                    batch = {k: np.stack([it[k] for it in items]) for k in items[0]}
+                yield batch
 
 
 class ShapeNetDataset:

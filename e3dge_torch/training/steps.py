@@ -41,6 +41,7 @@ from e3dge_torch.ops import adaptive_avg_pool
 from e3dge_torch.parallel import mesh
 from e3dge_torch.training import losses as L
 from e3dge_torch.training.train_utils import ema_update, make_noise
+from e3dge_torch.utils.trace import span
 
 STAGE1_TRAINABLE = ("encoder",)
 STAGE21_TRAINABLE = ("local", "grid_align")
@@ -513,17 +514,20 @@ def make_cycle_step(
         probe = [p for k, p in state.params.items() if k.startswith("local.")]
 
     def train_step(mean_latents, batch_size: int, generator: torch.Generator | None = None):
-        with mesh.sharded(world, rays=True):
-            noise = decoder_noise(model, batch_size, generator)
-            batch = model.synthetic_sample(batch_size, pose_scale_schedule(state.step), pair_same_id=True,
-                                           generator=generator, noise=noise)
-            loss, metrics, _ = cycle_loss(model, batch, mean_latents, lambdas, lpips_fn, id_fn, use_ref_view_weight,
-                                          d_fn, probe, noise=noise)
-            state.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-        mesh.all_reduce_grads(state.params.values(), world)
-        optimizer_step(state)
-        return mesh.reduce_metrics({k: v.detach() for k, v in metrics.items()}, world)
+        with span("e.step"):
+            with mesh.sharded(world, rays=True):
+                noise = decoder_noise(model, batch_size, generator)
+                batch = model.synthetic_sample(batch_size, pose_scale_schedule(state.step), pair_same_id=True,
+                                               generator=generator, noise=noise)
+                loss, metrics, _ = cycle_loss(model, batch, mean_latents, lambdas, lpips_fn, id_fn,
+                                              use_ref_view_weight, d_fn, probe, noise=noise)
+                state.optimizer.zero_grad(set_to_none=True)
+                with span("e.backward"):
+                    loss.backward()
+            mesh.all_reduce_grads(state.params.values(), world)
+            with span("e.optimizer"):
+                optimizer_step(state)
+            return mesh.reduce_metrics({k: v.detach() for k, v in metrics.items()}, world)
 
     return train_step
 
@@ -562,11 +566,12 @@ def full_d_batch(model, mean_latents, batch_size: int, d_res: int, generator: to
     and its reconstruction by `image2image` at the batch's cameras, with one
     set of decoder noise maps (scripts/train.py:316-334); across `world`'s
     ranks, this rank's rows of the global batch."""
-    with mesh.sharded(world):
-        noise = decoder_noise(model, batch_size, generator)
-        b = model.synthetic_sample(batch_size, 1.0, generator=generator, noise=noise)
-        out = model.image2image(b["images"], mean_latents, b["cam_settings"], noise=noise)
-    return adaptive_avg_pool(out["res_render_out"]["gen_imgs"], d_res), adaptive_avg_pool(b["images"], d_res)
+    with span("d.producer"):
+        with mesh.sharded(world):
+            noise = decoder_noise(model, batch_size, generator)
+            b = model.synthetic_sample(batch_size, 1.0, generator=generator, noise=noise)
+            out = model.image2image(b["images"], mean_latents, b["cam_settings"], noise=noise)
+        return adaptive_avg_pool(out["res_render_out"]["gen_imgs"], d_res), adaptive_avg_pool(b["images"], d_res)
 
 
 @torch.no_grad()
@@ -653,23 +658,24 @@ def make_full_d_step(lambdas: dict[str, float], state: DState, d_reg_every: int 
     d = state.d
 
     def train_step(real_imgs, fake_imgs):
-        with _trainable(d), mesh.sharded(world):
-            real_pred, fake_pred = d(real_imgs), d(fake_imgs.detach())
-            d_gan = L.d_logistic_loss(real_pred, fake_pred)
-            loss = d_gan * lambdas.get("discriminator_lambda", 1.0)
-            metrics = {"d": d_gan, "real_score": real_pred.mean(), "fake_score": fake_pred.mean()}
-            r1 = lambdas.get("r1", 0.0)
-            if r1 > 0:
-                metrics["r1"] = torch.zeros((), device=d_gan.device)
-                if state.step % d_reg_every == 0:
-                    metrics["r1"] = L.d_r1_penalty(d, real_imgs)
-                    loss = loss + (r1 * 0.5 * d_reg_every) * metrics["r1"]
-            state.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-            mesh.all_reduce_grads(d.parameters(), world)
-            state.optimizer.step()
-            state.optimizer.zero_grad(set_to_none=True)
-        state.step += 1
-        return mesh.reduce_metrics({k: v.detach() for k, v in metrics.items()}, world)
+        with span("d.step"):
+            with _trainable(d), mesh.sharded(world):
+                real_pred, fake_pred = d(real_imgs), d(fake_imgs.detach())
+                d_gan = L.d_logistic_loss(real_pred, fake_pred)
+                loss = d_gan * lambdas.get("discriminator_lambda", 1.0)
+                metrics = {"d": d_gan, "real_score": real_pred.mean(), "fake_score": fake_pred.mean()}
+                r1 = lambdas.get("r1", 0.0)
+                if r1 > 0:
+                    metrics["r1"] = torch.zeros((), device=d_gan.device)
+                    if state.step % d_reg_every == 0:
+                        metrics["r1"] = L.d_r1_penalty(d, real_imgs)
+                        loss = loss + (r1 * 0.5 * d_reg_every) * metrics["r1"]
+                state.optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+                mesh.all_reduce_grads(d.parameters(), world)
+                state.optimizer.step()
+                state.optimizer.zero_grad(set_to_none=True)
+            state.step += 1
+            return mesh.reduce_metrics({k: v.detach() for k, v in metrics.items()}, world)
 
     return train_step
