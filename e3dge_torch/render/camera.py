@@ -42,7 +42,9 @@ def camera_params_from_angles(
     elev = elev.reshape(-1).float()
     batch, dev = azim.shape[0], azim.device
 
-    dist = torch.ones(batch, device=dev)
+    # constants built on the device: no host copy, so a CUDA graph can capture this
+    zeros, ones = torch.zeros(batch, device=dev), torch.ones(batch, device=dev)
+    dist = ones
     near = (dist - dist_radius).reshape(batch, 1, 1)
     far = (dist + dist_radius).reshape(batch, 1, 1)
     fov = torch.full((batch,), float(fov_ang), device=dev) * math.pi / 180.0
@@ -53,7 +55,7 @@ def camera_params_from_angles(
     )
     camera_loc = dist[:, None] * camera_dir
 
-    up = torch.tensor([0.0, 1.0, 0.0], device=dev).expand(batch, 3)
+    up = torch.stack([zeros, ones, zeros], dim=-1)
     z_axis = _normalize(camera_dir)
     x_axis = _normalize(torch.linalg.cross(up, z_axis, dim=-1))
     y_axis = _normalize(torch.linalg.cross(z_axis, x_axis, dim=-1))
@@ -68,7 +70,6 @@ def camera_params_from_angles(
     extrinsics = torch.cat([w2c_R, -w2c_R @ T], dim=-1)
 
     f_uv = focal.reshape(batch) / (resolution / 2.0)
-    zeros, ones = torch.zeros(batch, device=dev), torch.ones(batch, device=dev)
     intrinsics = torch.stack(
         [
             torch.stack([f_uv, zeros, zeros], -1),
@@ -77,7 +78,7 @@ def camera_params_from_angles(
         ],
         dim=1,
     )
-    homo = torch.tensor([[0.0, 0.0, 0.0, 1.0]], device=dev).expand(batch, 1, 4)
+    homo = torch.stack([zeros, zeros, zeros, ones], dim=-1)[:, None]
     calibs = torch.cat([intrinsics @ extrinsics, homo], dim=1)
     viewpoint = torch.stack([azim, elev], dim=-1)
     return CameraParams(poses, extrinsics, focal, near, far, viewpoint, calibs)

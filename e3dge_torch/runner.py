@@ -24,13 +24,15 @@ from typing import Any, Callable, Mapping, Sequence
 import numpy as np
 import torch
 
+from e3dge_torch.models import volume_renderer
 from e3dge_torch.models.e3dge import E3DGE, LatentMeans
 from e3dge_torch.ops import adaptive_avg_pool
+from e3dge_torch.ops import siren_field as sf
 from e3dge_torch.parallel import mesh as dp
 from e3dge_torch.render.camera import CameraParams, camera_params_from_angles
 from e3dge_torch.training import losses as L
 from e3dge_torch.training.data import EvalImageDataset
-from e3dge_torch.utils import editing, image_io, mesh
+from e3dge_torch.utils import editing, graphs, image_io, mesh
 from e3dge_torch.utils.device import resolve_device
 from e3dge_torch.utils.trace import span
 
@@ -72,6 +74,12 @@ class Runner:
         self.lpips_fn = lpips_fn
         self.id_fn = id_fn
         self.boundaries: dict | None = None
+        # image2image's CUDA graphs, per input signature, and the fixed noise per batch
+        self.graphs = graphs.GraphCache(
+            self._invert, self.model, self.device, extra=lambda: self.mean_latents,
+            counters=(sf.launch_counts, sf.precision_launch_counts, volume_renderer.twin_counts),
+        ) if graphs.usable(self.device, world) else None
+        self._fixed_noise: dict[int, list[torch.Tensor]] = {}
 
     # ------------------------------------------------------------------ noise
 
@@ -111,20 +119,46 @@ class Runner:
         for a model without the local branch. Across the runner's ranks,
         images (and noise) are the global batch on every rank: each rank
         inverts its rows, and `gen_imgs` comes back for the whole batch on
-        every rank (the other outputs are the rank's rows)."""
+        every rank (the other outputs are the rank's rows).
+
+        On a CUDA device with no world or a world of one rank, calls replay
+        CUDA graphs (`utils.graphs`). The key is the input signature (the
+        images' shape and dtype, the noise maps' shapes and dtypes) and every
+        parameter's and buffer's storage and version counter, the mean
+        latents' included. The first call at a key runs eagerly and captures
+        the call, cut at the layer spans (10 graphs for the full model);
+        later calls copy the inputs in and replay them. An in-place weight
+        update, a load or `toonify` drops every chain, and the next call
+        captures again. Replayed outputs are fresh tensors, never the
+        graphs' memory. Each
+        captured signature holds a private pool of about one eager call's
+        working memory or more (at demo_view_synthesis_config's widths, f32:
+        2.0 GiB at B=1, 15.2 GiB at B=8). Without `noise`, the NOISE_SEED
+        maps are drawn once per batch size and kept on the card."""
         with span("inversion"):
-            images = images.to(self.device)
-            noise = self._noise(noise, images.shape[0])
-            w = self.world
-            if w is not None and w.size > 1:
-                images, noise = dp.shard_rows(images, w), [dp.shard_rows(n, w) for n in noise]
-            if self.cfg.renderer.enable_local_model:
-                out = self.model.image2image(images, self.mean_latents, noise=noise)
-                rec = out["res_render_out"]
-            else:
-                out = rec = self.model.image2image_global(images, self.mean_latents, noise=noise)
-            if w is not None and w.size > 1:
-                rec["gen_imgs"] = dp.gather_rows(rec["gen_imgs"], w)
+            if self.graphs is None:
+                return self._invert(images, noise)
+            if noise is None:
+                b = images.shape[0]
+                if b not in self._fixed_noise:
+                    self._fixed_noise[b] = self.make_noise(b)
+                noise = self._fixed_noise[b]
+            return self.graphs(images, list(noise))
+
+    def _invert(self, images: torch.Tensor, noise=None) -> dict[str, Any]:
+        """`image2image`'s eager path."""
+        images = images.to(self.device)
+        noise = self._noise(noise, images.shape[0])
+        w = self.world
+        if w is not None and w.size > 1:
+            images, noise = dp.shard_rows(images, w), [dp.shard_rows(n, w) for n in noise]
+        if self.cfg.renderer.enable_local_model:
+            out = self.model.image2image(images, self.mean_latents, noise=noise)
+            rec = out["res_render_out"]
+        else:
+            out = rec = self.model.image2image_global(images, self.mean_latents, noise=noise)
+        if w is not None and w.size > 1:
+            rec["gen_imgs"] = dp.gather_rows(rec["gen_imgs"], w)
         return out
 
     def encode_ref(self, images: torch.Tensor) -> dict[str, Any]:

@@ -10,6 +10,12 @@ the host time of each launch. Spans are joined by time, so they nest on one
 thread; device work that autograd launches from its own threads during a
 backward lies inside the backward's span in time. A span never
 synchronises, reads a tensor or allocates on the device.
+
+While `utils.graphs` captures a call as CUDA graphs, `span` ends the graph
+being captured at each span's entry and exit (`_cut`), and a replay opens
+the same spans around the graphs: a replayed kernel belongs to the span its
+`cudaGraphLaunch` was made in. The replay and the capture themselves open
+`REPLAY` and `CAPTURE`, which are no layer.
 """
 
 from __future__ import annotations
@@ -24,15 +30,29 @@ import torch
 LAYERS = ("inversion", "e0.encoder", "e0.pose", "g0.render", "e1.filter", "e1.fusion", "g1.decoder",
           "d.producer", "data.reals", "d.step", "e.step", "e.backward", "e.optimizer")
 
+# a call served from CUDA graphs (`utils.graphs`) and its capture
+REPLAY, CAPTURE = "graph.replay", "graph.capture"
+
 _profiling = torch._C._autograd._profiler_enabled
 _OFF = nullcontext()
+# while a chain of CUDA graphs is captured: the capture's cut(name), a
+# context manager that ends one graph at the span's entry and exit
+_cut = None
 
 
 def span(name: str):
     """A context manager over one layer's work (`name` one of LAYERS)."""
+    if _cut is not None:
+        return _cut(name)
     if not _profiling():
         return _OFF
     return torch._C._profiler._RecordFunctionFast(name)
+
+
+def mark(name: str):
+    """`span` that never cuts a capture: the profiler's range of that name
+    while one records, else the shared null context."""
+    return torch._C._profiler._RecordFunctionFast(name) if _profiling() else _OFF
 
 
 def read(prof) -> tuple[list, list]:

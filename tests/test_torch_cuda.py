@@ -273,3 +273,184 @@ def test_eval_cli_metrics_on_the_card(card, tmp_path, monkeypatch):
     assert sf.launch_counts == {"siren_field_full": 3, "siren_field_tex": 3}
     (scores,) = json.loads((tmp_path / "out" / "scores.json").read_text())
     assert scores["num_images"] == 5 and all(np.isfinite(v) for v in scores.values())
+
+
+# -- Runner.image2image replayed as CUDA graphs (utils/graphs.py) --------------
+
+SERVE_LAYERS = ("e0.encoder", "e0.pose", "g0.render", "e1.filter", "e1.fusion", "g1.decoder")
+
+
+@pytest.fixture(scope="module")
+def served(tmp_path_factory):
+    """A Runner on the card at demo_view_synthesis_config's full widths, seeded
+    weights and mean latents (the field f32 `highest`)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: CUDA graphs exist only there")
+    from e3dge_torch import config as tc
+    from e3dge_torch.models.e3dge import E3DGE, LatentMeans
+    from e3dge_torch.runner import Runner
+    from e3dge_torch.utils.weights import init_weights
+
+    cfg = tc.demo_view_synthesis_config()
+    model = E3DGE(cfg, device="cuda")
+    init_weights(model, 0)
+    g = torch.Generator().manual_seed(0)
+    ml = LatentMeans(0.2 * torch.randn(1, cfg.renderer.depth + 1, cfg.renderer.style_dim, generator=g),
+                     0.2 * torch.randn(1, cfg.decoder.n_latent, cfg.decoder.style_dim, generator=g))
+    return Runner(model, ml, "cuda", work_dir=tmp_path_factory.mktemp("served"))
+
+
+def _request(runner, b, seed):
+    """b seeded host photos in [-1, 1] and their decoder noise on the card."""
+    g = torch.Generator().manual_seed(seed)
+    res = runner.cfg.pifu.load_size
+    photos = torch.rand(b, 3, res, res, generator=g) * 2 - 1
+    noise = [torch.randn(n.shape, generator=g).cuda() for n in runner.make_noise(b)]
+    return photos, noise
+
+
+def _answers(out) -> dict:
+    lat = out["ref_info"]["pred_latents"]
+    return {"image": out["res_render_out"]["gen_imgs"], "thumb": out["ref_info"]["global_render_out"]["gen_thumb_imgs"],
+            "latents": torch.cat([lat[0].flatten(1), lat[1].flatten(1)], 1)}
+
+
+def _tensors(x) -> list:
+    if isinstance(x, torch.Tensor):
+        return [x]
+    items = x.values() if isinstance(x, dict) else x if isinstance(x, (list, tuple)) else ()
+    return [t for v in items for t in _tensors(v)]
+
+
+def _assert_equal(got: dict, want: dict) -> None:
+    for name in want:
+        assert torch.equal(got[name], want[name]), f"{name}: max gap {float((got[name] - want[name]).abs().max())}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 2])
+def test_replay_equals_the_eager_path_bitwise(served, b):
+    """The call that captures answers from its eager warm-up; the replays that
+    follow, on other photos and noise, equal the eager path bit for bit in
+    the image, the G0 thumb and the latents (so the field kernel's ctypes
+    launches are in the graphs), from one chain of a few graphs."""
+    from e3dge_torch.utils import graphs
+
+    runner = served
+    runner.graphs.chains.clear()
+    for seed in range(3):
+        photos, noise = _request(runner, b, 100 * b + seed)
+        got = _answers(runner.image2image(photos, noise))
+        want = _answers(runner._invert(photos, noise))
+        _assert_equal(got, want)
+    chain = runner.graphs.chains[graphs.signature((photos, noise))]
+    assert len(runner.graphs.chains) == 1 and 5 <= chain.launches <= 25
+
+
+@pytest.mark.cuda
+def test_held_outputs_survive_later_calls(served):
+    """A caller may keep an answer: the capture's (eager) and a replay's
+    answers are unchanged by the calls after them, and no output tensor lies
+    in the graphs' memory."""
+    from e3dge_torch.utils import graphs
+
+    runner = served
+    runner.graphs.chains.clear()
+    outs, kept = [], []
+    for seed in range(3):
+        out = runner.image2image(*_request(runner, 1, 200 + seed))
+        outs.append(out)
+        kept.append([t.clone() for t in _tensors(out)])
+    for out, copies in zip(outs, kept):
+        for t, c in zip(_tensors(out), copies):
+            assert torch.equal(t, c)
+    assert not torch.equal(outs[1]["res_render_out"]["gen_imgs"], outs[2]["res_render_out"]["gen_imgs"])
+    (chain,) = runner.graphs.chains.values()
+    pool = {t.untyped_storage().data_ptr() for t in _tensors(chain.out) + chain.static}
+    assert not pool & {t.untyped_storage().data_ptr() for out in outs for t in _tensors(out)}
+    assert outs[2]["que_info"] is outs[2]["ref_info"]["global_render_out"]
+    assert graphs.signature(_request(runner, 1, 0)) in runner.graphs.chains
+
+
+@pytest.mark.cuda
+def test_an_in_place_weight_update_recaptures(served):
+    """An in-place update of a field weight (whose kernel pack is cached)
+    drops the chain: the next call captures again and both it and the replay
+    after it equal the eager path at the new weights."""
+    from e3dge_torch.utils import graphs
+
+    runner = served
+    photos, noise = _request(runner, 1, 300)
+    sig = graphs.signature((photos, noise))
+    before = _answers(runner.image2image(photos, noise))
+    runner.image2image(photos, noise)
+    chain = runner.graphs.chains[sig]
+    weight = runner.model.generator.renderer.network.pts_linears[3].weight
+    saved = weight.detach().clone()
+    try:
+        with torch.no_grad():
+            weight.mul_(1.5)
+        got = _answers(runner.image2image(photos, noise))
+        assert runner.graphs.chains[sig] is not chain
+        again = _answers(runner.image2image(photos, noise))
+        want = _answers(runner._invert(photos, noise))
+        _assert_equal(got, want)
+        _assert_equal(again, want)
+        assert not torch.equal(got["image"], before["image"])
+    finally:
+        with torch.no_grad():
+            weight.copy_(saved)
+
+
+@pytest.mark.cuda
+def test_a_second_batch_size_captures_a_second_chain(served):
+    runner = served
+    runner.graphs.chains.clear()
+    for b in (1, 2, 1, 2, 2):
+        runner.image2image(*_request(runner, b, 400 + b))
+    assert sorted(sig[0][0][0] for sig in runner.graphs.chains) == [1, 2]
+
+
+@pytest.mark.cuda
+def test_a_traced_replay_gives_each_layer_its_device_time(served):
+    """Under the profiler each replayed kernel links to its graph's launch
+    inside the right span: per layer span, the same device operations by
+    name (memsets as one, memcpys as one) as the eager path, their device time within 5% of it (replayed,
+    e0.pose's small kernels ran 1.3-2.6% faster than launched one by one)
+    and all six spans' within 2%, the field kernels in g0.render, and one
+    "graph.replay" per call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from e3dge_torch.utils import trace
+
+    runner = served
+    photos, noise = _request(runner, 1, 500)
+    cache = runner.graphs
+
+    def layers(graphed: bool, calls: int = 3):
+        runner.graphs = cache if graphed else None
+        try:
+            for _ in range(2):
+                runner.image2image(photos, noise)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    runner.image2image(photos, noise)
+                torch.cuda.synchronize()
+        finally:
+            runner.graphs = cache
+        ops, host = trace.read(prof)
+        return trace.Layers(ops, host), [h for h in host if h[2] == trace.REPLAY]
+
+    eager, no_replays = layers(False)
+    graphed, replays = layers(True)
+    assert not no_replays and len(replays) == 3
+    def kinds(lay, name):  # a graph's memset and memcpy nodes may run as kernels ("memset32", "memcpy32_post")
+        return sorted(next((k for k in ("memset", "memcpy") if k in op[0].lower()), op[0]) for op in lay.own[name])
+
+    for name in SERVE_LAYERS:
+        assert kinds(graphed, name) == kinds(eager, name), name
+        assert graphed.device_ns(name) == pytest.approx(eager.device_ns(name), rel=0.05), name
+    total = [sum(lay.device_ns(name) for name in SERVE_LAYERS) for lay in (graphed, eager)]
+    assert total[0] == pytest.approx(total[1], rel=0.02)
+    assert any("siren_field" in op[0] for op in graphed.own["g0.render"])

@@ -3,7 +3,9 @@ against the JAX package's, the decoder's truncation and style mixing against
 JAX's, the reference-checkpoint helpers against `e3dge_tpu/utils/torch_ckpt.py`
 on seeded dicts (and a .pt round trip), and two properties of the runner
 itself: the batched video equals the per-view loop, and a toonify swap is
-undone exactly by swapping back.
+undone exactly by swapping back; on the CPU `image2image` stays on its eager
+path, and the key of its CUDA graphs (`utils.graphs`) moves with the input
+signature and the weights only.
 
 Tolerances: editing and trajectories are a few f32 adds, 1e-6; the decoder
 1e-4 of its output's scale (tests/test_torch_models.py::conv_atol); the
@@ -23,6 +25,7 @@ from e3dge_torch.render.camera import camera_params_from_angles as t_cam
 from e3dge_torch.runner import Runner
 from e3dge_torch.utils import checkpoint as tckpt
 from e3dge_torch.utils import editing as tedit
+from e3dge_torch.utils import graphs
 from e3dge_torch.utils.weights import init_weights, load_jax_variables
 from e3dge_tpu.render.camera import camera_params_from_angles as j_cam
 from e3dge_tpu.runner import Runner as JRunner
@@ -257,3 +260,99 @@ def test_reference_checkpoint_loads_strictly_from_pt(tmp_path):
         torch.testing.assert_close(v, want[k], rtol=0, atol=0, msg=k)
     with pytest.raises(RuntimeError):  # strict: a missing key is an error
         tckpt.load_reference_checkpoint(dst, {k: v for k, v in list(g_ema.items())[1:]})
+
+
+def test_image2image_on_the_cpu_stays_eager():
+    """No graph cache on the CPU; the runner's answer is the model's own on
+    the runner's NOISE_SEED noise, bit for bit, call after call."""
+    runner, x = _seeded_runner()
+    assert runner.graphs is None
+    want = runner.model.image2image(x, runner.mean_latents, noise=runner.make_noise(2))
+    for _ in range(2):
+        got = runner.image2image(x)
+        torch.testing.assert_close(got["res_render_out"]["gen_imgs"], want["res_render_out"]["gen_imgs"],
+                                   rtol=0, atol=0)
+        for g, w in zip(got["ref_info"]["pred_latents"], want["ref_info"]["pred_latents"]):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("device, world_size, usable", [
+    ("cpu", None, False), ("cuda", None, True), ("cuda", 1, True), ("cuda", 2, False)])
+def test_graphs_are_used_on_a_card_with_at_most_one_rank(device, world_size, usable):
+    world = None if world_size is None else type("World", (), {"size": world_size})()
+    assert graphs.usable(torch.device(device), world) is usable
+
+
+def _key_inputs(b=2, maps=(4, 8, 8)):
+    g = torch.Generator().manual_seed(b + len(maps))
+    return torch.randn(b, 3, 16, 16, generator=g), [torch.randn(b, 1, s, s, generator=g) for s in maps]
+
+
+@pytest.mark.parametrize("change, moves", [
+    ("other photo and noise values", False),
+    ("images on another device", False),
+    ("a call between", False),
+    ("batch size", True),
+    ("noise shapes", True),
+    ("noise count", True),
+    ("images dtype", True),
+    ("parameter version", True),
+    ("buffer version", True),
+    ("replaced parameter", True),
+    ("mean latents version", True),
+])
+def test_graph_key_moves_with_the_signature_and_the_weights_only(change, moves):
+    runner, _ = _seeded_runner()
+    cache = graphs.GraphCache(runner._invert, runner.model, torch.device("cpu"), extra=lambda: runner.mean_latents)
+    images, noise = _key_inputs()
+    before = cache.key(images, noise)
+    if change == "other photo and noise values":
+        images, noise = images + 1, [n * 2 for n in noise]
+    elif change == "images on another device":
+        images = images.to("meta")
+    elif change == "a call between":
+        runner.image2image(torch.rand(2, 3, runner.cfg.pifu.load_size, runner.cfg.pifu.load_size))
+    elif change == "batch size":
+        images, noise = _key_inputs(b=1)
+    elif change == "noise shapes":
+        images, noise = images, _key_inputs(maps=(4, 8, 16))[1]
+    elif change == "noise count":
+        noise = noise[:2]
+    elif change == "images dtype":
+        images = images.double()
+    elif change == "parameter version":
+        with torch.no_grad():
+            next(runner.model.generator.renderer.network.parameters()).mul_(1.0)
+    elif change == "buffer version":
+        with torch.no_grad():
+            next(b for b in runner.model.buffers() if b.is_floating_point()).add_(0.0)
+    elif change == "replaced parameter":  # a new tensor: the cached list of the model's tensors is rebuilt
+        mod = next(m for m in runner.model.fuse_sft_block.modules() if "weight" in m._parameters)
+        mod.weight = torch.nn.Parameter(mod.weight.detach().clone())
+    elif change == "mean latents version":
+        runner.mean_latents.renderer.add_(0.0)
+    after = cache.key(images, noise)
+    assert (after != before) is moves
+    assert (after[0] != before[0]) is (moves and change in ("batch size", "noise shapes", "noise count",
+                                                            "images dtype"))
+
+
+def test_graph_outputs_are_fresh_with_their_aliasing_kept():
+    """`graphs._fresh`: every tensor a new copy, dicts, lists and named tuples
+    rebuilt, one object met twice one copy."""
+    cam = t_cam(torch.zeros(2), torch.zeros(2), 8)
+    shared = {"gen_thumb_imgs": torch.rand(2, 3, 4, 4), "raw_h": torch.rand(2, 5)}
+    out = {"res_render_out": {"gen_imgs": torch.rand(2, 3, 8, 8)}, "que_info": shared,
+           "ref_info": {"global_render_out": shared, "cam_settings": cam, "pred_latents": [torch.rand(2, 4)],
+                        "n": 3, "none": None}}
+    got = graphs._fresh(out, {})
+    assert got["que_info"] is got["ref_info"]["global_render_out"]
+    assert type(got["ref_info"]["cam_settings"]) is type(cam)
+    pairs = [(got["res_render_out"]["gen_imgs"], out["res_render_out"]["gen_imgs"]),
+             (got["que_info"]["raw_h"], shared["raw_h"]),
+             (got["ref_info"]["pred_latents"][0], out["ref_info"]["pred_latents"][0]),
+             *zip(got["ref_info"]["cam_settings"], cam)]
+    for g, w in pairs:
+        assert g.data_ptr() != w.data_ptr()
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert got["ref_info"]["n"] == 3 and got["ref_info"]["none"] is None

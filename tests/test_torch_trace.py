@@ -1,10 +1,12 @@
 """The port's spans (`e3dge_torch.utils.trace`) on the CPU at the tiny
 configuration: nothing opened without a profiler; under one, every layer
 boundary of an inversion and of a stage-2.2 iteration among the profiler's
-host operators, nested as the layers are; and `Layers`' join of spans with
-device operations against values computed by hand."""
+host operators, nested as the layers are; under a CUDA graph capture each
+span cuts the capture at its entry and exit; and `Layers`' join of spans
+with device operations against values computed by hand."""
 
 from collections import Counter
+from contextlib import contextmanager
 
 import numpy as np
 import pytest
@@ -65,6 +67,41 @@ def test_span_without_a_profiler_is_one_shared_object():
     assert a is b
     with a, b:
         pass
+
+
+@pytest.mark.parametrize("name", trace.LAYERS + (trace.REPLAY, trace.CAPTURE))
+def test_span_off_the_profiler_and_outside_a_capture_is_the_shared_null_context(name):
+    assert trace._cut is None and not torch._C._autograd._profiler_enabled()
+    assert trace.span(name) is trace._OFF and trace.mark(name) is trace._OFF
+
+
+def test_under_a_capture_each_span_of_an_inversion_cuts_it(tiny, monkeypatch):
+    """While `utils.graphs` captures, `span` hands each span to the capture's
+    cut (here a recorder of the entries and exits): an inversion's spans
+    arrive in order, each exit matching its entry, and none opens a profiler
+    range by itself."""
+    cfg, model, ml, photos = tiny
+    runner = Runner(model, ml, device="cpu")
+    steps = []
+
+    @contextmanager
+    def cut(name):
+        steps.append(("enter", name))
+        yield
+        steps.append(("exit", name))
+
+    monkeypatch.setattr(trace, "_cut", cut)
+    runner.image2image(photos)
+    monkeypatch.setattr(trace, "_cut", None)
+    assert Counter(n for kind, n in steps if kind == "enter") == INVERSION
+    stack = []
+    for kind, name in steps:
+        if kind == "enter":
+            stack.append(name)
+        else:
+            assert stack.pop() == name
+    assert not stack and steps[0] == ("enter", "inversion") and steps[-1] == ("exit", "inversion")
+    assert [n for kind, n in steps if kind == "enter"][1:4] == ["e0.encoder", "e0.pose", "g0.render"]
 
 
 def test_an_inversion_opens_every_layer_inside_its_request(tiny):
