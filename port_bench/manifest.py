@@ -27,7 +27,7 @@ def cell(name: str, root: Path = ROOT) -> dict:
     if entry is None:
         raise SystemExit(f"no workload {name!r} in BENCHMARK.json")
     conf = next(c for c in man["configs"] if c["name"] == entry["config"])
-    workload = json.loads((PKG / "workloads" / f"{name}.json").read_text())
+    workload = json.loads((root / PKG.name / "workloads" / f"{name}.json").read_text())
     if workload["config"] != entry["config"]:
         raise SystemExit(f"{name}: the workload file's config {workload['config']!r} is not the manifest's")
 

@@ -25,8 +25,8 @@ def top_level(mods, glob="nothing") -> set[str]:
 
 
 def test_harness_imports_no_jax():
-    mods = ["port_bench.run", "port_bench.drivers.serve", "port_bench.drivers.train", "e3dge_torch.runner",
-            "e3dge_torch.training.train", "port_bench.reference.training.steps"]
+    mods = ["port_bench.run", "port_bench.drivers.serve", "port_bench.drivers.train", "port_bench.drivers.train_dp",
+            "e3dge_torch.runner", "e3dge_torch.training.train", "port_bench.reference.training.steps"]
     loaded = top_level(mods, "metrics/*.py")
     assert not loaded & {"jax", "jaxlib", "flax", "e3dge_tpu", "chip_smoke", "bench", "__graft_entry__"}
 

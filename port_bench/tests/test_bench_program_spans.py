@@ -48,6 +48,12 @@ TRAIN_OPS = [
     op(3100, 3900, 3100), op(3900, 4400, 4000), op(4700, 4750, 4700), op(4750, 4790, 4800), op(4950, 4990, None),
 ]
 CASES = {
+    # E0's 90 (inside aten::conv2d, which is no span of the port's) / 2
+    "serve.encoder_ms": (SERVE_SPANS, SERVE_OPS, 2, 90 / 2 / 1000),
+    # the filter's 990 inside E1's fusion / 2
+    "serve.e1_filter_ms": (SERVE_SPANS, SERVE_OPS, 2, 990 / 2 / 1000),
+    # G1's 350, running on after its span closed / 2
+    "serve.decoder_ms": (SERVE_SPANS, SERVE_OPS, 2, 350 / 2 / 1000),
     # (E1's own 50 + 20, request 2's 50) / 2; the filter's 990 is not the fusion's
     "serve.fusion_ms": (SERVE_SPANS, SERVE_OPS, 2, (50 + 20 + 50) / 2 / 1000),
     # the kernel linked to no call runs after G0's, so it is G0's
@@ -100,4 +106,5 @@ def test_a_traced_run_reports_every_span_metric(cell):
     got = {k: v["value"] for k, v in result["metrics"].items() if k in CASES}
     assert set(got) == {m for m in CASES if m.startswith("serve." if cell.startswith("i2i") else "train.")}
     for name, value in got.items():
-        assert value == 0.0 if name.endswith(("g0_ms", "fusion_ms", "backward_ms", "optimizer_ms")) else value > 0
+        device_ms = ("encoder_ms", "e1_filter_ms", "g0_ms", "fusion_ms", "decoder_ms", "backward_ms", "optimizer_ms")
+        assert value == 0.0 if name.endswith(device_ms) else value > 0
