@@ -312,19 +312,20 @@ def stage1_loss(
 
     # 3D shape supervision: the frozen field re-queried with the PREDICTED
     # latents at the sample's points (trainer.py:1050-1098)
-    pred_shape = {
-        "uniform_points_sdf": model.query_sdf(batch["uniform_pts"], pred_w, train=True) * batch["uniform_valid"],
-        "surface_sdf": model.query_sdf(batch["xyz"], pred_w, train=True) * batch["mask"][..., 0, :],
-    }
-    gt_shape = {"uniform_points_sdf": batch["uniform_sdf"] * batch["uniform_valid"]}
-    if lambdas.get("shape_normal_lambda", 0.0) > 0 or lambdas.get("eikonal_lambda", 0.0) > 0:
-        renderer = model.generator.renderer
-        pred_eik = eikonal_term(renderer, batch["near_pts"], pred_w, create_graph=True)
-        gt_eik = eikonal_term(renderer, batch["near_pts"], batch["latent_gt"], create_graph=False)
-        pred_shape["surface_eikonal_term"] = pred_eik * batch["near_valid"]
-        pred_shape["eikonal_term"] = pred_eik
-        gt_shape["surface_eikonal_term"] = gt_eik * batch["near_valid"]
-    loss_shape, mshape = L.calc_shape_rec_loss(pred_shape, gt_shape, lambdas)
+    with span("g0.shape"):
+        pred_shape = {
+            "uniform_points_sdf": model.query_sdf(batch["uniform_pts"], pred_w, train=True) * batch["uniform_valid"],
+            "surface_sdf": model.query_sdf(batch["xyz"], pred_w, train=True) * batch["mask"][..., 0, :],
+        }
+        gt_shape = {"uniform_points_sdf": batch["uniform_sdf"] * batch["uniform_valid"]}
+        if lambdas.get("shape_normal_lambda", 0.0) > 0 or lambdas.get("eikonal_lambda", 0.0) > 0:
+            renderer = model.generator.renderer
+            pred_eik = eikonal_term(renderer, batch["near_pts"], pred_w, create_graph=True)
+            gt_eik = eikonal_term(renderer, batch["near_pts"], batch["latent_gt"], create_graph=False)
+            pred_shape["surface_eikonal_term"] = pred_eik * batch["near_valid"]
+            pred_shape["eikonal_term"] = pred_eik
+            gt_shape["surface_eikonal_term"] = gt_eik * batch["near_valid"]
+        loss_shape, mshape = L.calc_shape_rec_loss(pred_shape, gt_shape, lambdas)
     loss = loss + loss_shape
     return loss, {**m2d, **mshape, "loss": loss, "thumb_rec": thumb_loss}, out
 
@@ -358,16 +359,20 @@ def make_stage1_step(
                          f"constrain_fn; run stage 1 at sp=1")
 
     def train_step(mean_latents, batch_size: int, generator: torch.Generator | None = None):
-        with mesh.sharded(world):
-            noise = decoder_noise(model, batch_size, generator)
-            batch = model.synthetic_sample(batch_size, pose_scale_schedule(state.step), generator=generator,
-                                           noise=noise)
-            loss, metrics, _ = stage1_loss(model, batch, mean_latents, lambdas, lpips_fn, id_fn, noise=noise)
-            state.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-        mesh.all_reduce_grads(state.params.values(), world)
-        optimizer_step(state)
-        return mesh.reduce_metrics({k: v.detach() for k, v in metrics.items()}, world)
+        with span("e.step"):
+            with mesh.sharded(world):
+                noise = decoder_noise(model, batch_size, generator)
+                with span("e.sample"):
+                    batch = model.synthetic_sample(batch_size, pose_scale_schedule(state.step), generator=generator,
+                                                   noise=noise)
+                loss, metrics, _ = stage1_loss(model, batch, mean_latents, lambdas, lpips_fn, id_fn, noise=noise)
+                state.optimizer.zero_grad(set_to_none=True)
+                with span("e.backward"):
+                    loss.backward()
+            mesh.all_reduce_grads(state.params.values(), world)
+            with span("e.optimizer"):
+                optimizer_step(state)
+            return mesh.reduce_metrics({k: v.detach() for k, v in metrics.items()}, world)
 
     return train_step
 

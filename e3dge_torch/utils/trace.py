@@ -28,7 +28,7 @@ import torch
 
 # every span the port opens, from the request down
 LAYERS = ("inversion", "e0.encoder", "e0.pose", "g0.render", "e1.filter", "e1.fusion", "g1.decoder",
-          "d.producer", "data.reals", "d.step", "e.step", "e.backward", "e.optimizer")
+          "d.producer", "data.reals", "d.step", "e.step", "e.sample", "g0.shape", "e.backward", "e.optimizer")
 
 # a call served from CUDA graphs (`utils.graphs`) and its capture
 REPLAY, CAPTURE = "graph.replay", "graph.capture"
@@ -127,16 +127,31 @@ class Layers:
             names.append(s[2])
         close_until(float("inf"))
         self.inner = names
-        self.own, owner = defaultdict(list), None
+        # each operation with the host time it counts from: its launch call's, else the one's before it
+        self.own, owner, self.launched, at = defaultdict(list), None, [], None
         for op in sorted(ops, key=lambda op: op[1]):
             if op[3] is not None:
-                k = bisect.bisect_right(self.times, op[3]) - 1
+                at = op[3]
+                k = bisect.bisect_right(self.times, at) - 1
                 owner = names[k] if k >= 0 else None
             self.own[owner].append(op)
+            self.launched.append((at, op))
 
     def device_ns(self, name: str | None) -> int:
         """Device time of span `name`'s own operations (nested spans' excluded)."""
         return sum(e - s for _, s, e, _ in self.own[name])
+
+    def inclusive_ns(self, names) -> int:
+        """Device time of the operations launched while one of the spans
+        `names` was open, those of the spans nested in it included."""
+        ivs = self.open(names)
+        starts = [s for s, _ in ivs]
+        total = 0
+        for at, (_, s, e, _) in self.launched:
+            k = -1 if at is None else bisect.bisect_right(starts, at) - 1
+            if k >= 0 and at <= ivs[k][1]:
+                total += e - s
+        return total
 
     def open(self, names) -> list[tuple[int, int]]:
         return _union((s, e) for s, e, n in self.spans if n in names)

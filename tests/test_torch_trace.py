@@ -148,6 +148,66 @@ def test_a_training_iteration_opens_its_layers(tiny, tmp_path):
     assert {"g0.render", "e1.fusion", "g1.decoder"} <= {n for _, _, n in inside}
 
 
+@pytest.fixture(scope="module")
+def tiny_stage1():
+    """A stage-1 step at tiny_test_config (E0 trained, the shape terms with
+    the normal and eikonal lambdas on) and its mean latents."""
+    torch.manual_seed(1)
+    cfg = tc.tiny_test_config()
+    model = E3DGE(cfg, device="cpu")
+    init_weights(model, 1)
+    ml = LatentMeans(0.2 * torch.randn(1, cfg.renderer.depth + 1, cfg.renderer.style_dim),
+                     0.2 * torch.randn(1, cfg.decoder.n_latent, cfg.decoder.style_dim))
+    state = ts.create_train_state(model, ts.STAGE1_TRAINABLE, 1e-4)
+    return ts.make_stage1_step(model, dict(ts.STAGE1_LAMBDAS), state), ml
+
+
+def test_a_stage1_step_opens_its_layers_nested(tiny_stage1):
+    """The step's spans: "e.step" around it all; inside it "e.sample" (the
+    frozen GAN's render, G0 and G1) before the loss, "g0.shape" after the
+    inversion's layers and outside the sample, then "e.backward" and
+    "e.optimizer"."""
+    step, ml = tiny_stage1
+    spans, _ = traced(lambda: step(ml, 2, torch.Generator().manual_seed(0)))
+    (top,) = [s for s in spans if not any(within(s, o) for o in spans if o is not s)]
+    assert top[2] == "e.step"
+    (sample,) = [s for s in spans if s[2] == "e.sample"]
+    (shape,) = [s for s in spans if s[2] == "g0.shape"]
+    assert within(sample, top) and within(shape, top) and not within(shape, sample)
+    in_sample = {n for s, e, n in spans if (s, e, n) != sample and within((s, e), sample)}
+    assert in_sample == {"g0.render", "g1.decoder"}
+    after = [n for s, _, n in sorted(spans) if s > shape[1]]
+    assert after == ["e.backward", "e.optimizer"]
+    # the inversion's encoder, render and decoder lie between the sample and the shape terms
+    between = {n for s, e, n in spans if sample[1] < s and e < shape[0]}
+    assert {"e0.encoder", "g0.render", "g1.decoder"} <= between
+    assert not {n for s, e, n in spans if (s, e, n) != shape and within((s, e), shape)}
+
+
+def test_a_stage1_step_without_a_profiler_opens_nothing(tiny_stage1, monkeypatch):
+    step, ml = tiny_stage1
+    asked = []
+
+    def recorded(name):
+        out = trace.span(name)
+        asked.append((name, out is trace._OFF))
+        return out
+
+    monkeypatch.setattr(ts, "span", recorded)
+    step(ml, 2, torch.Generator().manual_seed(0))
+    assert {n for n, _ in asked} == {"e.step", "e.sample", "g0.shape", "e.backward", "e.optimizer"}
+    assert all(off for _, off in asked)
+
+
+def test_a_cycle_step_opens_no_stage1_span(tiny):
+    cfg, model, ml, _ = tiny
+    state = ts.create_train_state(model, ts.STAGE22_TRAINABLE, 1e-4)
+    e_step = ts.make_cycle_step(model, dict(l2_lambda=1.0), state)
+    spans, _ = traced(lambda: e_step(ml, 2, torch.Generator().manual_seed(0)))
+    names = {n for _, _, n in spans}
+    assert "e.step" in names and not names & {"e.sample", "g0.shape"}
+
+
 def op(start, end, host):
     return ("kernel", start, end, host)
 
@@ -192,6 +252,17 @@ def test_layers_read_host_and_idle_time_of_the_spans():
     # innermost [100, 200], [600, 700], [1200, 1300], [3000, 3100], [3500, 3600], [4000, 4100], [5000, 5100],
     # [5500, 5600], [5900, 6000]: busy 50 of [4000, 4100]
     assert rows["inversion"] == (0, 0, 900 - 50)
+
+
+@pytest.mark.parametrize("names, ns", [
+    ({"e1.fusion"}, 50 + 990 + 20 + 50),  # the nested filter's 990 is the fusion's too
+    ({"g0.render"}, 290 + 70 + 100 + 200),  # the unlinked kernel follows the G0 kernel before it
+    ({"inversion"}, sum(e - s for _, s, e, _ in OPS) - 100),  # all but the kernel outside every span
+    ({"e0.encoder", "g1.decoder"}, 90 + 350),
+    ({"e.sample"}, 0),
+])
+def test_layers_read_the_device_time_launched_inside_spans(names, ns):
+    assert trace.Layers(OPS, HOST).inclusive_ns(names) == ns
 
 
 def test_layers_without_the_ports_spans_hold_nothing():
